@@ -1,17 +1,18 @@
-"""portable_multigrid_tpu — TPU-native matrix-free multigrid framework.
+"""portable_multigrid_tpu — matrix-free multigrid framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 dealii-X/portable-multigrid (GPU-portable matrix-free geometric and polynomial
-multigrid for Poisson-type problems with continuous Q_p elements), designed
-TPU-first:
+multigrid for Poisson-type problems with continuous Q_p elements):
 
   * setup (meshes, DoFs, constraints, 1D matrices, geometry) is host-side
     NumPy producing flat tensor-grid arrays;
   * the entire solve — CG + V-cycle + Chebyshev smoothing + transfers +
     operator applies — is one jitted, purely functional program;
   * gather/scatter are structured reshapes/overlap-adds (no atomics, no cell
-    coloring, bit-deterministic);
-  * multi-chip runs shard elements over a `jax.sharding.Mesh` with halo
+    coloring), so the summation order is fixed by the program; on a GPU,
+    XLA's choice of library kernel can still move the last bits between
+    runs (the convergence tests hold iteration counts, not bits);
+  * multi-device runs shard elements over a `jax.sharding.Mesh` with halo
     plane exchange via collectives (parallel subpackage).
 
 See SURVEY.md for the complete component-by-component mapping to the

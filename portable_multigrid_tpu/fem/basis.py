@@ -1,6 +1,6 @@
 """1D Lagrange bases, quadrature, and shape matrices (host-side, NumPy).
 
-TPU-native equivalent of the 1D data consumed by the reference's
+JAX equivalent of the 1D data consumed by the reference's
 sum-factorization evaluator: ``shape_values``, ``shape_gradients`` and
 ``co_shape_gradients`` (reference: include/operators/portable_laplace_operator.h:92-102
 consumes them via deal.II's ``internal::EvaluatorTensorProduct``), plus the 1D
@@ -157,7 +157,7 @@ def h_prolongation_matrix_1d(degree: int) -> np.ndarray:
 
     Row r is the evaluation of the coarse Lagrange basis at the r-th fine
     nodal point of the refined pair of children; the shared center row is
-    identical from both children.  TPU-native equivalent of assembling
+    identical from both children.  Equivalent of assembling
     ``fe.get_prolongation_matrix(child)`` into the (p+1) x (2p+1) scheme
     matrix (reference: include/multigrid/portable_geometric_transfer.h:1290-1318,
     with n_child_dofs_1d = 2*(p+1) - 1).

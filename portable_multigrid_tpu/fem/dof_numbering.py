@@ -1,6 +1,6 @@
 """Continuous Q_p DoF enumeration on unstructured hex/quad meshes.
 
-TPU-native replacement for the deal.II DoF layer consumed by the reference
+JAX replacement for the deal.II DoF layer consumed by the reference
 (``DoFHandler::distribute_dofs`` + lexicographic renumbering, reference:
 source/geometric_multigrid/program.cc:154-158 and
 include/operators/portable_laplace_operator.h:494-507): builds the per-cell

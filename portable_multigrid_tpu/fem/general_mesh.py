@@ -54,7 +54,7 @@ class GeneralMesh:
         """Per-cell inverse Jacobians and JxW at tensor quadrature points.
 
         Returns (inv_jac [E, Q, dim, dim], jxw [E, Q]) with Q = n_q_1d^dim —
-        the TPU-resident equivalents of ``precomputed_data.inv_jacobian`` and
+        the device-resident equivalents of ``precomputed_data.inv_jacobian`` and
         ``JxW`` (reference: include/operators/portable_laplace_operator.h:
         300-325).  inv_jac[e, q, d1, d2] = (dxi_d1 / dx_d2), so the physical
         gradient is inv_jac^T @ reference gradient.

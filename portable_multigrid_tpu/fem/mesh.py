@@ -1,6 +1,6 @@
 """Structured hyper-cube meshes and their refinement hierarchies (host-side).
 
-TPU-native replacement for the subset of deal.II meshing the reference
+JAX replacement for the subset of deal.II meshing the reference
 exercises: ``GridGenerator::hyper_cube`` + ``refine_global`` (reference:
 source/geometric_multigrid/program.cc:409-417) and
 ``MGTransferGlobalCoarseningTools::create_geometric_coarsening_sequence``

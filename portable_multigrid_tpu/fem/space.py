@@ -1,6 +1,6 @@
 """Q_p finite-element spaces on structured hyper-cube meshes (host-side).
 
-TPU-native replacement for the deal.II DoF layer the reference consumes:
+JAX replacement for the deal.II DoF layer the reference consumes:
 ``FE_Q<dim>`` + ``DoFHandler::distribute_dofs`` (reference:
 source/geometric_multigrid/program.cc:77-78,154-158) and the Dirichlet
 constraint masks (reference:

@@ -1,6 +1,6 @@
 """Linear elasticity model problem: geometric multigrid, vector Q_p elements.
 
-BASELINE.json config 4 driver: -div sigma(u) = f on the unit hyper-cube with
+Vector-valued driver: -div sigma(u) = f on the unit hyper-cube with
 homogeneous Dirichlet everywhere, f = (1, ..., 1), solved by CG with a
 geometric V-cycle preconditioner (same algorithmic skeleton as the Poisson
 driver — the operator and vectors are just vector-valued)."""
@@ -35,42 +35,18 @@ class ElasticityMultigrid:
         mu: float = 1.0,
         lam: float = 1.0,
         dtype=jnp.float64,
-        variant: str | None = None,
+        variant: str = "kron",
     ):
-        if variant is None:
-            # "auto" (TPU f32 default) compile-probes the banded Pallas
-            # vector kernel per level and degrades to kron
-            # (ops/pallas_elasticity.py:make_elasticity_auto); kron
-            # (assembled 1D matrices) is exact-roundoff and the CPU/f64
-            # default; PMG_ELASTICITY_VARIANT=dense|sumfac|kron|auto
-            # overrides
-            import os
-
-            default = (
-                "auto"
-                if dtype == jnp.float32 and jax.default_backend() != "cpu"
-                else "kron"
-            )
-            variant = os.environ.get("PMG_ELASTICITY_VARIANT", default)
         self.dtype = dtype
         mesh = HyperCubeMesh(dim, refinements)
         self.spaces = [
             FESpace(m, degree) for m in geometric_coarsening_sequence(mesh)
         ]
-        # kron (assembled 1D matrices, large MXU matmuls) is the fast path
-        # on TPU, exactly like the scalar operator; "high" (3-pass bf16,
-        # ~f32 accuracy) matches the scalar bench/model precision at f32
-        precision = "high" if dtype == jnp.float32 else "highest"
+        # kron (assembled 1D matrices applied as large matmuls) is exact to
+        # roundoff and the default; every contraction at "highest" precision
         levels = []
         for i, sp in enumerate(self.spaces):
-            if variant == "auto":
-                from ..ops.pallas_elasticity import make_elasticity_auto
-
-                op = make_elasticity_auto(sp, dtype, mu=mu, lam=lam,
-                                          precision=precision)
-            else:
-                op = make_elasticity(sp, dtype, mu=mu, lam=lam,
-                                     variant=variant, precision=precision)
+            op = make_elasticity(sp, dtype, mu=mu, lam=lam, variant=variant)
             if i == 0:
                 sm = make_chebyshev(
                     op,
@@ -91,62 +67,11 @@ class ElasticityMultigrid:
                         sp.free_mask()[None], (dim,) + sp.grid_shape
                     ),
                 )
-                sm = self._maybe_mxu_recurrence(sm, op, sp, dtype, mu, lam)
             tr = (
                 make_h_transfer(self.spaces[i - 1], sp, dtype) if i > 0 else None
             )
             levels.append(MGLevel(op=op, smoother=sm, transfer=tr))
         self.levels = tuple(levels)
-
-    @staticmethod
-    def _maybe_mxu_recurrence(sm, op, sp, dtype, mu, lam):
-        """Upgrade the smoothing-level Chebyshev when the exact operator is
-        the banded Pallas kernel:
-
-        1. route the RECURRENCE through the bf16 MXU elasticity core (the
-           scalar-operator smoother split: recurrence state tolerates a
-           bf16-grade operator, level residuals/eig bounds stay on the
-           exact banded core — CG counts pinned by the batch-13 solve check
-           and tests/test_pallas_elasticity.py); PMG_ELASTICITY_MXU=0 opts
-           out;
-        2. fuse the recurrence epilogues into the kernels
-           (FusedVectorChebyshev, modes residual/cheb/chebl — the
-           elementwise 3-component updates stop costing XLA HBM passes)
-           when the fused modes compile (AOT-probed, the apply-probe
-           precedent); PMG_ELASTICITY_FUSED=0 opts out."""
-        import dataclasses
-        import os
-
-        from ..ops.pallas_elasticity import (
-            PallasElasticityOperator,
-            elasticity_compile_ok,
-            elasticity_fused_ok,
-            make_pallas_elasticity,
-        )
-        from ..solvers.chebyshev import FusedVectorChebyshev
-
-        if not isinstance(op, PallasElasticityOperator):
-            return sm
-        mxu = None
-        if os.environ.get("PMG_ELASTICITY_MXU", "1") == "1":
-            cand = make_pallas_elasticity(
-                sp, dtype, mu=mu, lam=lam, bx=op.bx, by=op.by, core="mxu",
-                zpad=op.zpad, interpret=op.interpret,
-            )
-            if elasticity_compile_ok(cand):
-                mxu = cand
-        if (
-            os.environ.get("PMG_ELASTICITY_FUSED", "1") == "1"
-            and elasticity_fused_ok(op)
-            and (mxu is None or elasticity_fused_ok(mxu))
-        ):
-            return FusedVectorChebyshev(
-                degree=sm.degree, op=op, op_smooth=mxu,
-                theta=sm.theta, delta=sm.delta,
-            )
-        if mxu is not None:
-            return dataclasses.replace(sm, op=mxu)
-        return sm
 
     def solve(self, rtol: float = 1e-12, verbose: bool = False):
         fine = self.spaces[-1]

@@ -288,7 +288,7 @@ class GeneralGeometryMultigrid:
 class CurvedMultigrid:
     """h-multigrid Poisson on a genuinely CURVED domain: every level's
     operator carries the Q_q (MappingQ-analog) geometry evaluated from the
-    same smooth transform — the TPU-native counterpart of the reference
+    same smooth transform — the counterpart of the reference
     building MappingQ(fe_degree) per level (reference:
     include/operators/portable_laplace_operator.h:469-482).
 

@@ -1,13 +1,12 @@
 """Mixed multigrid configurations.
 
-* :class:`MixedMultigridPoisson` — BASELINE.json config 3: a polynomial
-  ladder on the finest mesh (e.g. p = 4 -> 2 -> 1) handing off to geometric
-  coarse levels at p = 1.  The V-cycle is transfer-agnostic, so this is just
-  a different level list: h-levels below, p-levels above.
+* :class:`MixedMultigridPoisson` — a polynomial ladder on the finest mesh
+  (e.g. p = 4 -> 2 -> 1) handing off to geometric coarse levels at p = 1.
+  The V-cycle is transfer-agnostic, so this is just a different level list:
+  h-levels below, p-levels above.
 
-* :class:`MixedPrecisionVCycle` — BASELINE.json config 5 (single-chip part):
-  the whole V-cycle preconditioner runs in a low precision (f32 or bf16)
-  while the outer CG runs in f64.  Mathematically safe — the preconditioner
+* :class:`MixedPrecisionPoisson` — the whole V-cycle preconditioner runs in
+  a low precision (f32 or bf16) while the outer CG runs in f64.  Mathematically safe — the preconditioner
   need not be exact (SURVEY.md §7 hard part d) — and verified against the
   all-f64 convergence history in the tests.
 """
@@ -31,7 +30,7 @@ from .poisson import SolveStats, _build_level
 
 
 class MixedMultigridPoisson:
-    """p-ladder on the finest mesh + geometric coarsening below (config 3)."""
+    """p-ladder on the finest mesh + geometric coarsening below."""
 
     def __init__(
         self,
@@ -95,7 +94,7 @@ class MixedMultigridPoisson:
 
 
 class MixedPrecisionPoisson:
-    """f64 outer CG preconditioned by a low-precision V-cycle (config 5)."""
+    """f64 outer CG preconditioned by a low-precision V-cycle."""
 
     def __init__(
         self,
@@ -127,7 +126,6 @@ class MixedPrecisionPoisson:
         fine = self.spaces[-1]
         rhs = jnp.asarray(assemble_rhs(fine), jnp.float64)
         mg = VCycle(pre_smoothing_steps=2, post_smoothing_steps=2,
-                    fine_trimmed=bool(getattr(self, "fine_trimmed", False)),
                     levels=self.levels)
         mg_dtype = self.mg_dtype
 

@@ -1,4 +1,4 @@
-"""Poisson model problems: the two reference drivers, rebuilt TPU-native.
+"""Poisson model problems: the two reference drivers, rebuilt in JAX.
 
   * :class:`GeometricMultigridPoisson` — dim-D Poisson on the unit hyper-cube,
     f ≡ 1, homogeneous Dirichlet on the whole boundary, h-multigrid over the
@@ -50,34 +50,15 @@ def _build_level(
     variant: str = "sumfac",
     coefficient=None,
 ) -> MGLevel:
-    smoother_op = None
     if coefficient is not None:
-        # variable coefficients run the qdense MXU path by default (two
-        # large element matmuls around a q-point scale — ~40x the sumfac
-        # throughput on TPU); coarse levels are re-discretizations of the
-        # same coefficient (standard geometric MG).  PMG_VARCOEFF_VARIANT
-        # opts back into sumfac (the low-memory general path).
+        # variable coefficients run the qdense matmul path by default;
+        # coarse levels are re-discretizations of the same coefficient
+        # (standard geometric MG).  PMG_VARCOEFF_VARIANT opts back into
+        # sumfac (the low-memory general path).
         vc = os.environ.get("PMG_VARCOEFF_VARIANT", "qdense")
         op = make_laplace(space, dtype, variant=vc, coefficient=coefficient)
-    elif variant == "auto":
-        from ..ops.pallas_laplace import PallasLaplaceOperator, make_laplace_auto
-        from ..ops.pallas_laplace2d import PallasLaplace2D
-
-        pallas_types = (PallasLaplaceOperator, PallasLaplace2D)
-        op = make_laplace_auto(space, dtype)
-        if isinstance(op, pallas_types) and not coarse:
-            # the Chebyshev recurrence tolerates a bf16-grade operator (the
-            # residuals and CG stay on the exact banded kernel) — verified
-            # to preserve convergence counts in tests/test_pallas_smoother.py
-            # (coarse levels never smooth fused, so skip the MXU setup there).
-            # In 2D the one banded operator serves every role, so the "mxu"
-            # request returns the same kernel (ops/pallas_laplace2d.py).
-            smoother_op = make_laplace_auto(space, dtype, core="mxu")
-            if not isinstance(smoother_op, pallas_types):
-                smoother_op = None
     else:
         op = make_laplace(space, dtype, variant=variant)
-    fused = smoother_op if smoother_op is not None and not coarse else None
     if coarse:
         smoother = make_chebyshev(
             op,
@@ -86,45 +67,8 @@ def _build_level(
             eig_cg_n_iterations=space.n_dofs,
         )
     else:
-        resid3 = None
-        cheb2 = None
-        cheb2r = None
-        if fused is not None:
-            from ..ops.pallas_laplace import make_resid3_twin
-
-            resid3 = make_resid3_twin(space, op, dtype)
-            if os.environ.get("PMG_CHEB2", "1") == "1":
-                # two-step fused recurrence pairs (ops/pallas_cheb2.py):
-                # one HBM pass per pair of Chebyshev steps; CG-count parity
-                # pinned in tests/test_pallas_cheb2.py
-                from ..ops.pallas_cheb2 import make_cheb2_auto
-
-                cheb2 = make_cheb2_auto(space, dtype)
-                if cheb2 is not None and os.environ.get(
-                        "PMG_CHEB2R", "0") == "1":
-                    # OPT-IN S=3 "pair + r_out": the pre-restriction
-                    # residual rides the last pre-smooth pair (one full
-                    # residual1t HBM pass disappears), but the residual is
-                    # then recurrence-grade — accumulated bf16-A errors
-                    # (~0.3 %/pair at residual scale) cost ONE extra CG
-                    # iteration at production grade (measured,
-                    # tests/test_pallas_cheb2.py::
-                    # test_cheb2lr_costs_at_most_one_iteration), so the
-                    # default stays on the exact banded residual
-                    cheb2r = make_cheb2_auto(space, dtype, rout=True)
         smoother = make_chebyshev(
-            op, smoothing_range=15.0, degree=5, eig_cg_n_iterations=10,
-            fused_smoother_op=fused,
-            # fused levels run the trimmed kernel-chained pipeline (state
-            # pads/trims only at representation boundaries — wire_trimmed)
-            # with the recurrence r/d streams stored bf16 (halves the
-            # dominant smoother HBM traffic; CG-count parity pinned in
-            # tests/test_pallas_smoother.py)
-            trimmed_io=fused is not None,
-            resid3_op=resid3,
-            state_dtype="bf16" if fused is not None else "f32",
-            cheb2_op=cheb2,
-            cheb2r_op=cheb2r,
+            op, smoothing_range=15.0, degree=5, eig_cg_n_iterations=10
         )
     return op, smoother
 
@@ -147,31 +91,15 @@ class _MultigridPoissonBase:
 
     def _assemble_levels(self, spaces, make_transfer):
         levels = []
-        prev_trimmed = False
         for i, sp in enumerate(spaces):
             op, smoother = _build_level(
                 sp, self.dtype, coarse=(i == 0), variant=self.variant,
                 coefficient=self.coefficient,
             )
-            cur_trimmed = bool(getattr(smoother, "trimmed_io", False))
-            transfer = None
-            if i > 0:
-                if cur_trimmed and make_transfer is make_h_transfer:
-                    # trimmed pallas level: fused pallas transfer kernels
-                    # where the pair is eligible
-                    from ..ops.pallas_transfer import make_h_transfer_auto
-
-                    transfer = make_h_transfer_auto(
-                        spaces[i - 1], sp, self.dtype, cur_trimmed,
-                        prev_trimmed,
-                    )
-                else:
-                    transfer = make_transfer(spaces[i - 1], sp, self.dtype)
-            prev_trimmed = cur_trimmed
+            transfer = (
+                make_transfer(spaces[i - 1], sp, self.dtype) if i > 0 else None
+            )
             levels.append(MGLevel(op=op, smoother=smoother, transfer=transfer))
-        from ..solvers.vcycle import wire_trimmed
-
-        levels, self.fine_trimmed = wire_trimmed(levels)
         self.spaces = list(spaces)
         self.levels = tuple(levels)
 
@@ -189,7 +117,6 @@ class _MultigridPoissonBase:
         mg = VCycle(
             pre_smoothing_steps=pre_smoothing_steps,
             post_smoothing_steps=post_smoothing_steps,
-            fine_trimmed=bool(getattr(self, "fine_trimmed", False)),
             levels=self.levels,
         )
         result = _solve(self.levels[-1].op, mg, rhs, rtol)

@@ -1,10 +1,11 @@
-"""Native (C++) setup runtime, loaded via ctypes with build-on-demand.
+"""Native (C++) setup runtime, loaded via ctypes and built on first use.
 
-The compute path is JAX/XLA/Pallas (compiled native TPU code); this package
-is the *host* native tier: the counterpart of the reference's C++ setup
-machinery (DoF enumeration, index harvesting, transfer weights).  The shared
-library is compiled once with g++ on first use and cached next to the
-sources; every entry point has a pure-Python twin in fem/ used as fallback
+The compute path is JAX/XLA; this package is the *host* native tier: the
+counterpart of the reference's C++ setup machinery (DoF enumeration, index
+harvesting, transfer weights).  Every process compiles the shared library
+from ``pmg_native.cpp`` with g++ on first use, so a library is never loaded
+on a machine other than the one that built it; the file is removed once
+loaded.  Every entry point has a pure-Python twin in fem/ used as fallback
 and as the golden reference in tests.
 """
 
@@ -14,12 +15,15 @@ import ctypes
 import os
 import subprocess
 import threading
+import uuid
 
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "pmg_native.cpp")
-_LIB = os.path.join(_HERE, "libpmg_native.so")
+# inside the checkout, listed in .gitignore
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
+                          "native")
 _lock = threading.Lock()
 _lib = None
 
@@ -28,32 +32,29 @@ class NativeUnavailable(RuntimeError):
     pass
 
 
-def _build() -> None:
-    cmd = [
-        "g++",
-        "-O3",
-        "-shared",
-        "-fPIC",
-        "-std=c++17",
-        _SRC,
-        "-o",
-        _LIB,
-    ]
+def _build() -> str:
+    """Compile the library for this process; returns the file's path."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    out = os.path.join(
+        _BUILD_DIR, f"libpmg_native-{os.getpid()}-{uuid.uuid4().hex}.so"
+    )
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", out]
     subprocess.run(cmd, check=True, capture_output=True)
+    return out
 
 
 def get_lib():
-    """Load (building if needed) the native library; raises NativeUnavailable."""
+    """Load (building first) the native library; raises NativeUnavailable."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
         try:
-            if not os.path.exists(_LIB) or os.path.getmtime(
-                _LIB
-            ) < os.path.getmtime(_SRC):
-                _build()
-            lib = ctypes.CDLL(_LIB)
+            path = _build()
+            try:
+                lib = ctypes.CDLL(path)
+            finally:
+                os.remove(path)
         except (OSError, subprocess.CalledProcessError) as exc:
             raise NativeUnavailable(str(exc)) from exc
         lib.pmg_enumerate_dofs.restype = ctypes.c_int64

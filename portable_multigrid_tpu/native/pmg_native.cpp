@@ -1,6 +1,6 @@
 // Native setup kernels for portable_multigrid_tpu.
 //
-// The TPU compute path is JAX/XLA/Pallas; this library is the native host
+// The compute path is JAX/XLA; this library is the native host
 // runtime tier — the counterpart of the C++ setup machinery the reference
 // consumes from deal.II (DoFHandler::distribute_dofs and the
 // cell->global-DoF harvesting in Portable::MatrixFree; reference:

@@ -1,7 +1,6 @@
 """Vector-valued linear elasticity operator (sum-factorized, JAX/XLA).
 
-BASELINE.json config 4: "variable-coefficient / vector-valued linear
-elasticity operator at Q3".  Weak form
+The vector-valued linear elasticity operator.  Weak form
 
     a(u, v) = ∫ 2 mu  eps(u) : eps(v) + lambda (div u)(div v) dx,
 
@@ -54,7 +53,7 @@ class ElasticityOperator:
     Gg: jnp.ndarray = None
     GgT: jnp.ndarray = None  # host-transposed copy (trial-derivative axes)
     # "dense" variant: the constant [dim*(p+1)^dim]^2 element matrix
-    # (component-major), applied as ONE MXU matmul over all elements
+    # (component-major), applied as ONE matmul over all elements
     elem_matrix: jnp.ndarray = None
 
     @property
@@ -83,8 +82,8 @@ class ElasticityOperator:
         where D(∂e, ∂f) is the scalar trilinear term with the test
         derivative on axis e and the trial derivative on axis f: K on the
         axis if e == f, else G on axis e and Gᵀ on axis f, M elsewhere —
-        every term a chain of dim large MXU matmuls on the contiguous DoF
-        grid (the TPU-shaped reformulation of the reference's q-point
+        every term a chain of dim large matmuls on the contiguous DoF
+        grid (the matmul reformulation of the reference's q-point
         gradient-tensor loop, portable_laplace_operator.h:300-325)."""
         dim = self.dim
         mu, lam = self.mu, self.lam
@@ -127,7 +126,7 @@ class ElasticityOperator:
         return jnp.stack(outs)
 
     def apply_dense(self, um: jnp.ndarray) -> jnp.ndarray:
-        """Element apply as ONE MXU matmul with the constant vector-valued
+        """Element apply as ONE matmul with the constant vector-valued
         element matrix.
 
         On the affine uniformly refined mesh every cell's elasticity element
@@ -137,7 +136,7 @@ class ElasticityOperator:
         ops/laplace.py:apply_local_dense).  The kron variant's 21 assembled
         Kronecker chains cost O(N^4) FLOPs per chain (dense global 1D
         matrices); this path is O(E * (dim*ndof)^2) on the systolic array —
-        the TPU-shaped reformulation of the reference's per-cell q-point
+        the matmul reformulation of the reference's per-cell q-point
         gradient-tensor loop (reference:
         include/operators/portable_laplace_operator.h:300-325)."""
         dim = self.dim

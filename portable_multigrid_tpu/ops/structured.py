@@ -1,6 +1,6 @@
 """Structured-grid gather/scatter primitives (JAX, device-side).
 
-TPU-native replacement for the reference's indexed gather / atomic-or-colored
+JAX replacement for the reference's indexed gather / atomic-or-colored
 scatter of cell DoFs (reference:
 include/operators/portable_laplace_operator.h:245-258 [gather via
 local_to_global] and :361-380 [Kokkos::atomic_add or colored scatter]).
@@ -10,7 +10,8 @@ per-cell DoF patches is a pair of reshapes/strided slices per axis, and the
 transpose "assembly" (scatter-add) is an overlap-add, also expressible with
 reshapes and one shifted add per axis — no gather/scatter HLO, no atomics,
 no cell coloring.  This deletes the reference's entire per-color machinery
-(SURVEY.md §2.3 item 3) while remaining bit-deterministic.
+(SURVEY.md §2.3 item 3); the summation order is fixed by the program,
+not by thread scheduling.
 
 All windows here have width == stride + 1 (the one-point C0 overlap between
 neighboring cells), which both the operator (stride p) and the transfers
@@ -22,8 +23,9 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# TPU matmuls default to one-pass bf16; the solver needs true f32/f64
-# contractions (the reference is f64 end-to-end, SURVEY.md §7 point 4).
+# f32 matmuls may default to reduced-precision passes (TF32 on a GPU); the
+# solver needs true f32/f64 contractions (the reference is f64 end-to-end,
+# SURVEY.md §7 point 4).
 PRECISION = jax.lax.Precision.HIGHEST
 
 

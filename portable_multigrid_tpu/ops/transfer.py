@@ -1,6 +1,6 @@
 """Grid transfers: geometric (h) and polynomial (p) prolongation/restriction.
 
-TPU-native rebuild of the reference's two transfer families:
+JAX rebuild of the reference's two transfer families:
 
   * ``Portable::GeometricTransfer`` — h-transfer between two meshes at equal
     degree (reference: include/multigrid/portable_geometric_transfer.h:687-1487);
@@ -40,15 +40,15 @@ import jax.numpy as jnp
 from ..fem.basis import h_prolongation_matrix_1d, p_prolongation_matrix_1d
 from ..fem.space import FESpace
 from ..utils.pytree import pytree_dataclass, static_field
-from .structured import contract, overlap_add, split_windows
+from .structured import PRECISION, contract, overlap_add, split_windows
 
 
 def _contract_unrolled(t: jnp.ndarray, M: jnp.ndarray, axis: int,
                        transpose: bool = False) -> jnp.ndarray:
-    """1D contraction unrolled into scalar broadcast-FMAs (VPU-shaped).
+    """1D contraction unrolled into scalar broadcast-FMAs (elementwise code).
 
-    The window contractions have K = p+1 (or 2p+1) — hopeless MXU shapes;
-    unrolling forces elementwise code, which the VPU executes at full rate.
+    The window contractions have K = p+1 (or 2p+1), too small to feed a
+    matrix unit; unrolled, XLA fuses them into elementwise kernels.
     ``transpose`` contracts with M^T instead."""
     import jax
 
@@ -73,12 +73,10 @@ class Transfer:
     n_coarse: tuple = static_field()  # coarse cells per axis (tuple)
     stride_c: int = static_field()  # p_coarse
     stride_f: int = static_field()  # 2p (h) or p_fine (p)
-    # contraction engine: "unrolled" (scalar broadcast-FMAs on the VPU —
-    # the tiny-K window matmuls are hopeless MXU shapes: measured 2.81 ms vs
-    # 4.28 ms for the r=6 fine transfer pair) or "dot" (tensordot at
-    # f32-exact precision).  Bitwise-identical algebra; the factories pick
-    # unrolled for f32 (TPU) and dot for f64 (the unrolled graph makes XLA
-    # CPU compiles of 8-device sharded programs pathologically slow).
+    # contraction engine: "unrolled" (scalar broadcast-FMAs: the window
+    # contractions have K = p+1 or 2p+1, too small for a matrix unit) or
+    # "dot" (tensordot at HIGHEST precision).  Identical algebra; see
+    # _default_algo for which one the factories pick.
     algo: str = static_field(default="dot")
     M1: jnp.ndarray = None  # [stride_f+1, stride_c+1] 1D prolongation
     wmask_f: tuple = None  # per-axis [N_f] fine weights * fine mask factors
@@ -136,7 +134,8 @@ class Transfer:
                 t = _contract_unrolled(t, self.M1, ax + 1, transpose=True)
             else:
                 t = jnp.moveaxis(
-                    jnp.tensordot(t, self.M1, axes=((ax + 1,), (0,))),
+                    jnp.tensordot(t, self.M1, axes=((ax + 1,), (0,)),
+                                  precision=PRECISION),
                     -1, ax + 1,
                 )
             t = overlap_add(t, ax, self.n_coarse[ax], self.stride_c)
@@ -146,58 +145,6 @@ class Transfer:
     def restrict_and_add(self, dst: jnp.ndarray, f: jnp.ndarray) -> jnp.ndarray:
         """dst + P^T f (reference: portable_geometric_transfer.h:825-888)."""
         return dst + self.restrict(f)
-
-
-@pytree_dataclass
-class TrimmedTransfer:
-    """Adapter between trimmed-state levels (fused Pallas pipeline: the
-    global last plane per axis is dropped, constrained entries zero) and the
-    transfer algebra.
-
-    ``fine_trimmed`` / ``coarse_trimmed`` mark the representation of each
-    side, so hierarchies can mix trimmed Pallas levels with full-grid XLA
-    levels; padding/trimming happens only at representation boundaries (the
-    padded planes are Dirichlet-constrained and identically zero in both
-    representations, so the algebra is unchanged — the masks already zero
-    them).  The XLA pad/slice here is the interim engine; the banded Pallas
-    transfer kernels consume/produce trimmed state natively.
-    """
-
-    fine_trimmed: bool = static_field(default=True)
-    coarse_trimmed: bool = static_field(default=False)
-    # z-lane padding of each side's trimmed representation (lane-padded
-    # Pallas operators, ops/pallas_laplace.py lane_pad); pad lanes are
-    # identically zero
-    fine_zpad: int = static_field(default=0)
-    coarse_zpad: int = static_field(default=0)
-    base: Transfer = None
-
-    def _pad(self, t, zpad):
-        # the lane axis is the LAST grid axis (z in 3D, y in 2D)
-        if zpad:
-            t = t[..., : t.shape[-1] - zpad]
-        return jnp.pad(t, ((0, 1),) * t.ndim)
-
-    def _trim(self, t, zpad):
-        t = t[tuple(slice(0, s - 1) for s in t.shape)]
-        if zpad:
-            t = jnp.pad(t, [(0, 0)] * (t.ndim - 1) + [(0, zpad)])
-        return t
-
-    def restrict(self, f: jnp.ndarray) -> jnp.ndarray:
-        if self.fine_trimmed:
-            f = self._pad(f, self.fine_zpad)
-        c = self.base.restrict(f)
-        return self._trim(c, self.coarse_zpad) if self.coarse_trimmed else c
-
-    def prolongate(self, c: jnp.ndarray) -> jnp.ndarray:
-        if self.coarse_trimmed:
-            c = self._pad(c, self.coarse_zpad)
-        t = self.base.prolongate(c)
-        return self._trim(t, self.fine_zpad) if self.fine_trimmed else t
-
-    def prolongate_and_add(self, dst: jnp.ndarray, c: jnp.ndarray) -> jnp.ndarray:
-        return dst + self.prolongate(c)
 
 
 def _weights_1d(n_coarse: int, stride_f: int) -> np.ndarray:
@@ -211,14 +158,11 @@ def _weights_1d(n_coarse: int, stride_f: int) -> np.ndarray:
 
 
 def _default_algo(dtype) -> str:
-    """"unrolled" on the f32 (TPU) path — measured 2.81 vs 4.28 ms for the
-    r=6 fine pair; "dot" on the f64 (CPU test) path, where the unrolled
-    slice/stack graph makes XLA CPU compiles of 8-device sharded programs
-    pathologically slow."""
-    import os
-
-    default = "unrolled" if dtype == jnp.float32 else "dot"
-    return os.environ.get("PMG_TRANSFER_ALGO", default)
+    """"unrolled" for f32 (the production V-cycle dtype); "dot" for f64,
+    where the unrolled slice/stack graph makes XLA CPU compiles of
+    8-device sharded programs pathologically slow.  The f32 choice is
+    untuned on the H100 (see PERF.md)."""
+    return "unrolled" if dtype == jnp.float32 else "dot"
 
 
 def make_h_transfer(coarse: FESpace, fine: FESpace, dtype=jnp.float64) -> Transfer:

@@ -27,7 +27,6 @@ from .poisson import AXIS, ShardedSolveStats, _build_stacked_h_transfer, \
     _tile, _unstack
 from .sharding import (
     ShardedElasticityOperator,
-    ShardedPallasElasticity,
     ShardedTransfer,
     dot_weights_axis0,
     make_sharded_dot,
@@ -70,98 +69,6 @@ def _build_stacked_elasticity(
     )
 
 
-def _build_stacked_pallas_elasticity(
-    space: FESpace, S: int, dtype, mu: float, lam: float,
-    interpret: bool = False, zpad: int | None = None,
-):
-    """Stacked ShardedPallasElasticity for a level, or None if ineligible —
-    the vector twin of parallel/poisson.py:_build_stacked_pallas.  The thin
-    last-plane rows come straight from the 1D element matrices (the slab's
-    last grid plane touches only its own last cell, so the partial-assembly
-    row IS the element row)."""
-    import dataclasses as _dc
-
-    from ..fem.basis import make_basis
-    from ..ops.elasticity import assembled_1d_gradient
-    from ..ops.laplace import assembled_1d_matrices, diagonal_1d_factors
-    from ..ops.pallas_elasticity import (
-        elasticity_compile_ok,
-        make_pallas_elasticity_slab,
-    )
-    from ..ops.pallas_laplace import lane_pad, slab_pallas_eligible
-    from .poisson import _tile_tree
-    from .sharding import ShardedPallasElasticity
-
-    if dtype != jnp.float32 and not interpret:
-        return None
-    n, p = space.mesh.cells_per_axis, space.degree
-    if n % S:
-        return None
-    n_loc = n // S
-    zp = lane_pad(space) if zpad is None else zpad
-    Zk = n * p + zp
-
-    def pick(cells):
-        for b_ in (16, 8, 4, 2, 1):
-            # 16x16 blocks with >256 lanes crash Mosaic (scalar-kernel cap)
-            if b_ == 16 and Zk > 256:
-                continue
-            if cells % b_ == 0 and (b_ * p) % 8 == 0:
-                return b_
-        return None
-
-    bx = pick(n_loc)
-    by = pick(n)
-    if bx is None or by is None:
-        return None
-    if not (interpret or slab_pallas_eligible(space, n_loc, bx, by, zpad)):
-        return None
-    base = make_pallas_elasticity_slab(
-        space, n_loc, dtype, mu=mu, lam=lam, bx=bx, by=by,
-        interpret=interpret, zpad=zp,
-    )
-    if not elasticity_compile_ok(base):
-        return None
-    m1 = space.free_mask_1d()
-    gK, gM = diagonal_1d_factors(space)
-
-    def part(v):
-        return jnp.asarray(partition_axis0(v, n, p, S), dtype)
-
-    stacked = _tile_tree(base, S)
-    stacked = _dc.replace(
-        stacked,
-        mask1=(part(m1),) + stacked.mask1[1:],
-        dK1=(part(gK),) + stacked.dK1[1:],
-        dM1=(part(gM),) + stacked.dM1[1:],
-    )
-    K1, M1 = assembled_1d_matrices(space)
-    G1 = assembled_1d_gradient(space)
-    b = make_basis(p)
-    W = np.diag(b.q_weights)
-    h = space.mesh.h
-    Kc = (b.D.T @ W @ b.D) / h
-    Mc = (b.B.T @ W @ b.B) * h
-    Gc = b.D.T @ W @ b.B
-
-    def fold(A):
-        return m1[:, None] * A * m1[None, :]
-
-    return ShardedPallasElasticity(
-        axis_name=AXIS,
-        n_shards=S,
-        local=stacked,
-        thin_kx=_tile(Kc[-1], S, dtype),
-        thin_mx=_tile(Mc[-1], S, dtype),
-        thin_gx=_tile(Gc[-1], S, dtype),
-        thin_hx=_tile(Gc[:, -1], S, dtype),
-        K1m=_tile(fold(K1), S, dtype),
-        M1m=_tile(fold(M1), S, dtype),
-        G1m=_tile(fold(G1), S, dtype),
-        H1m=_tile(fold(G1.T), S, dtype),
-    )
-
-
 class ShardedElasticity:
     """h-multigrid linear elasticity sharded over a 1D device mesh."""
 
@@ -174,9 +81,6 @@ class ShardedElasticity:
         lam: float = 1.0,
         devices=None,
         dtype=jnp.float64,
-        variant: str = "sumfac",
-        pallas_interpret: bool = False,
-        pallas_zpad: int | None = None,
     ):
         if devices is None:
             devices = jax.devices()
@@ -200,20 +104,7 @@ class ShardedElasticity:
 
         levels = []
         for i, sp in enumerate(self.spaces):
-            op_st = None
-            if variant == "pallas":
-                # slab Pallas vector kernel where eligible (compile-probed);
-                # pallas_zpad (tests) applies to the finest level only —
-                # other levels follow the lane_pad policy
-                zp = pallas_zpad if i == len(self.spaces) - 1 else None
-                op_st = _build_stacked_pallas_elasticity(
-                    sp, S, dtype, mu, lam, interpret=pallas_interpret,
-                    zpad=zp,
-                )
-            elif variant != "sumfac":
-                raise ValueError(f"unknown sharded variant: {variant!r}")
-            if op_st is None:
-                op_st = _build_stacked_elasticity(sp, S, dtype, mu, lam)
+            op_st = _build_stacked_elasticity(sp, S, dtype, mu, lam)
             twin = make_elasticity(sp, dtype, mu=mu, lam=lam)
             fm = np.broadcast_to(sp.free_mask()[None], (dim,) + sp.grid_shape)
             v0 = _pseudo_random_grid((dim,) + sp.grid_shape, dtype) * fm
@@ -231,11 +122,7 @@ class ShardedElasticity:
             smoother = Chebyshev(
                 degree=deg,
                 op=None,  # wired to the sharded wrapper in shard_map
-                # pallas levels derive the diagonal lazily from the slab's
-                # partitioned 1D factors (inv_diag property); sumfac levels
-                # carry the stacked assembled diagonal
-                inv_diag=None if isinstance(op_st, ShardedPallasElasticity)
-                else op_st.inv_diag,
+                inv_diag=op_st.inv_diag,  # stacked assembled diagonal
                 theta=_tile(np.full((), (beta + alpha) / 2.0), S, dtype),
                 delta=_tile(np.full((), (beta - alpha) / 2.0), S, dtype),
             )
@@ -256,19 +143,14 @@ class ShardedElasticity:
         S = self.n_shards
         out = []
         for lvl in levels_stacked:
-            op_loc = _unstack(lvl.op)
-            if isinstance(op_loc, ShardedPallasElasticity):
-                sop = op_loc  # self-contained halo wrapper
-            else:
-                sop = ShardedElasticityOperator(
-                    axis_name=AXIS, n_shards=S, local=op_loc
-                )
+            sop = ShardedElasticityOperator(
+                axis_name=AXIS, n_shards=S, local=_unstack(lvl.op)
+            )
             sm_st = lvl.smoother
             sm = Chebyshev(
                 degree=sm_st.degree,
                 op=sop,
-                inv_diag=None if sm_st.inv_diag is None
-                else sm_st.inv_diag[0],
+                inv_diag=sm_st.inv_diag[0],
                 theta=sm_st.theta[0],
                 delta=sm_st.delta[0],
             )

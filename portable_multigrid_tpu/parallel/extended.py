@@ -3,7 +3,7 @@
 The reference runs under any ``mpirun -n N`` (reference:
 source/geometric_multigrid/program.cc:452); deal.II's tree partitioner hands
 each rank an uneven slab.  ``jax.shard_map`` needs UNIFORM per-shard block
-shapes, so instead of uneven slabs the TPU-native answer pads the SHARDED
+shapes, so instead of uneven slabs the answer here pads the SHARDED
 axis with dead cells up to ``n_ext = S * 2^k`` (k = refinements -
 floor(log2 S)), all on the same lattice spacing:
 

@@ -4,9 +4,7 @@ Scales the domain decomposition beyond 1D slabs: cells are partitioned in
 both grid axes over a 2D jax.sharding.Mesh, with single-plane halos on each
 sharded axis.  The corner (4-way duplicated) points are handled by ORDERING
 the halo exchanges — the y-exchange sends x-completed planes, so diagonal
-neighbors' contributions arrive transitively (the same argument as the
-Pallas kernel's carry scheme).  This mirrors how a v5e/v5p pod's 2D ICI
-torus is best utilized.
+neighbors' contributions arrive transitively.
 
 Only the pieces that differ from the 1D machinery live here; everything
 else (operators, smoothers, V-cycle, CG) is reused unchanged.
@@ -16,7 +14,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 
 import numpy as np
 import jax
@@ -35,7 +32,7 @@ from ..solvers.chebyshev import Chebyshev, chebyshev_bounds, \
 from ..solvers.vcycle import MGLevel, VCycle
 from ..utils.pytree import pytree_dataclass, static_field
 from .poisson import _partial_assembled_1d, _unstack
-from .sharding import halo_sum, slab_bounds
+from .sharding import halo_sum, shard_placement, slab_bounds
 
 AX, AY = "x", "y"
 
@@ -125,484 +122,6 @@ def _tile_tree2(tree, sx, sy):
 
 
 @pytree_dataclass
-class ShardedPallas2DLaplace:
-    """Fused Pallas kernel on a PENCIL-sharded grid (2D device mesh): the
-    slab kernel runs with per-shard x AND y mask vectors (interior pencil
-    boundaries unmasked), emits raw partial planes on both sharded axes,
-    and the dropped last x/y planes are recomputed by thin XLA contractions
-    of the local partial operator (the 2D analog of
-    sharding.ShardedPallasLaplace's completion) before ONE ordered 2D halo
-    exchange — the same single hot kernel for serial, 1D and 2D distributed
-    runs (reference: include/operators/portable_laplace_operator.h:557-719).
-    """
-
-    sx: int = static_field()
-    sy: int = static_field()
-    local: object = None  # PallasLaplaceOperator pencil slab (vector masks)
-    thin_kx: jnp.ndarray = None  # [p+1] last row of the slab-partial K (x)
-    thin_mx: jnp.ndarray = None
-    thin_ky: jnp.ndarray = None
-    thin_my: jnp.ndarray = None
-    Kxm: jnp.ndarray = None  # [N0loc, N0loc] slab-partial x (mask-folded)
-    Mxm: jnp.ndarray = None
-    Kym: jnp.ndarray = None  # [N1loc, N1loc] slab-partial y (mask-folded)
-    Mym: jnp.ndarray = None
-    Kzm: jnp.ndarray = None  # [Z, Z] global masked z
-    Mzm: jnp.ndarray = None
-
-    @property
-    def inv_diag(self):
-        return self.local.inv_diag
-
-    @property
-    def mask(self):
-        return self.local.mask
-
-    def apply(self, u: jnp.ndarray) -> jnp.ndarray:
-        loc = self.local
-        p = loc.degree
-        u = u.reshape(loc.grid_shape)
-        N0, N1 = loc.grid_shape[0], loc.grid_shape[1]
-        Z = loc.n[2] * p
-        # vector-y kernels always fetch the 8-row y tail (the duplicated
-        # plane is interior data): pad the input so the aligned read of the
-        # last block stays in bounds; lane-padded kernels additionally
-        # extend z to the inert Z + zpad lanes (single-chip mechanism)
-        pz = (0, loc.zpad - 1) if loc.zpad else (0, 0)
-        raw = loc._run("apply", jnp.pad(u, ((0, 0), (0, 7), pz)))
-        if loc.zpad:
-            raw = raw[:, :, :Z]
-
-        um = (u * loc.mask1[0].reshape(-1, 1, 1)
-              * loc.mask1[1].reshape(1, -1, 1)
-              * loc.mask1[2].reshape(1, 1, -1))
-        hi = jax.lax.Precision.HIGHEST
-
-        def ctr(t, W, ax):
-            return jnp.moveaxis(
-                jnp.tensordot(t, W, axes=((ax,), (1,)), precision=hi), -1, ax
-            )
-
-        def thin(win, tk, tm, Ko, Mo, oax):
-            """Contributions of OUR cells to the dropped plane along axis 0
-            of ``win`` (a (p+1)-window), with the OTHER in-plane axis
-            contracted by the slab-partial (Ko, Mo)."""
-            b = ctr(win, self.Mzm, 2)
-            a = ctr(win, self.Kzm, 2)
-            mb = ctr(b, Mo, oax)
-            kb = ctr(b, Ko, oax)
-            ma = ctr(a, Mo, oax)
-            out = jnp.tensordot(tk, mb, axes=(0, 0), precision=hi)
-            return out + jnp.tensordot(tm, kb + ma, axes=(0, 0), precision=hi)
-
-        # last x-plane (full local y extent, includes the corner line)
-        plane_x = thin(um[-(p + 1):], self.thin_kx, self.thin_mx,
-                       self.Kym, self.Mym, 1)  # [N1, Z']
-        # last y-plane (x extent w/o the last row — the corner lives above)
-        wy = jnp.moveaxis(um[:, -(p + 1):], 1, 0)  # [p+1, N0, Z]
-        plane_y = thin(wy, self.thin_ky, self.thin_my,
-                       self.Kxm, self.Mxm, 1)  # [N0, Z']
-
-        au = jnp.concatenate([raw, plane_y[: N0 - 1, None, :Z]], axis=1)
-        au = jnp.concatenate([au, plane_x[None, :N1, :Z]], axis=0)
-        au = jnp.pad(au, ((0, 0), (0, 0), (0, 1)))
-        au = halo_sum_2d(au, self.sx, self.sy)
-        m = loc.mask
-        return m * au + (1.0 - m) * u
-
-    vmult = apply
-
-
-def _build_stacked_pallas2d(
-    space: FESpace, sx: int, sy: int, dtype, core: str = "banded",
-    interpret: bool = False, zpad: int | None = None,
-):
-    """Stacked ShardedPallas2DLaplace for a level, or None if ineligible.
-
-    ``zpad=None`` follows the lane_pad policy (lane-padded grids ride the
-    same pencil kernels — z is not a sharded axis); an explicit value is
-    for interpret-mode tests on tiny grids."""
-    import dataclasses as _dc
-
-    from ..ops.laplace import diagonal_1d_factors
-    from ..ops.pallas_laplace import lane_pad, make_pallas_slab2d
-    from .poisson import _partial_assembled_1d
-    from .sharding import partition_axis0
-
-    if dtype != jnp.float32:
-        return None
-    n, p = space.mesh.cells_per_axis, space.degree
-    if n % sx or n % sy:
-        return None
-    nlx, nly = n // sx, n // sy
-    zp = lane_pad(space) if zpad is None else zpad
-    Zk = n * p + zp
-
-    def pick(cells):
-        for b in (16, 8, 4, 2, 1):
-            if b == 16 and Zk > 256:
-                continue
-            if cells % b == 0 and (b * p) % 8 == 0:
-                return b
-        return None
-
-    bx, by = pick(nlx), pick(nly)
-    if bx is None or by is None:
-        return None
-    if not interpret and (Zk < 128 or Zk % 128 != 0):
-        return None
-    base = make_pallas_slab2d(
-        space, nlx, nly, dtype, bx=bx, by=by, core=core, interpret=interpret,
-        zpad=zp,
-    )
-    m1 = space.free_mask_1d()
-    gK, gM = diagonal_1d_factors(space)
-
-    def part(v, S):
-        return partition_axis0(v, n, p, S)  # [S, N_loc]
-
-    mx = part(m1, sx)
-    my = part(m1, sy)
-
-    def bcast_xy(vx, vy):
-        """[sx,(..)] and [sy,(..)] -> stacked [sx, sy, ...] leaves."""
-        ax = np.broadcast_to(vx[:, None], (sx, sy) + vx.shape[1:])
-        ay = np.broadcast_to(vy[None], (sx, sy) + vy.shape[1:])
-        return ax, ay
-
-    stacked = _tile_tree2(base, sx, sy)
-    mxa, mya = bcast_xy(mx, my)
-    gKxa, gKya = bcast_xy(part(gK, sx), part(gK, sy))
-    gMxa, gMya = bcast_xy(part(gM, sx), part(gM, sy))
-    stacked = _dc.replace(
-        stacked,
-        mask1=(jnp.asarray(mxa, dtype), jnp.asarray(mya, dtype),
-               stacked.mask1[2]),
-        dK1=(jnp.asarray(gKxa, dtype), jnp.asarray(gKya, dtype),
-             stacked.dK1[2]),
-        dM1=(jnp.asarray(gMxa, dtype), jnp.asarray(gMya, dtype),
-             stacked.dM1[2]),
-    )
-    Kpx, Mpx = _partial_assembled_1d(space, nlx)
-    Kpy, Mpy = _partial_assembled_1d(space, nly)
-    from ..ops.laplace import assembled_1d_matrices
-
-    K1, M1 = assembled_1d_matrices(space)
-    # FULL masked global z matrices (the thin windows span the whole z axis)
-    K1m = m1[:, None] * K1 * m1[None, :]
-    M1m = m1[:, None] * M1 * m1[None, :]
-
-    def fold(mat, mvec):
-        # [S, N_loc] mask slices folded into the per-shard partial matrix
-        return mvec[:, :, None] * mat[None] * mvec[:, None, :]
-
-    def stx(a):  # [sx, ...] -> [sx, sy, ...]
-        return np.broadcast_to(a[:, None], (sx, sy) + a.shape[1:])
-
-    def sty(a):  # [sy, ...] -> [sx, sy, ...]
-        return np.broadcast_to(a[None], (sx, sy) + a.shape[1:])
-
-    Kxm_x = stx(fold(Kpx, mx))
-    Mxm_x = stx(fold(Mpx, mx))
-    Kym_y = sty(fold(Kpy, my))
-    Mym_y = sty(fold(Mpy, my))
-    return ShardedPallas2DLaplace(
-        sx=sx,
-        sy=sy,
-        local=stacked,
-        thin_kx=_tile2(Kpx[-1, -(p + 1):], sx, sy, dtype),
-        thin_mx=_tile2(Mpx[-1, -(p + 1):], sx, sy, dtype),
-        thin_ky=_tile2(Kpy[-1, -(p + 1):], sx, sy, dtype),
-        thin_my=_tile2(Mpy[-1, -(p + 1):], sx, sy, dtype),
-        Kxm=jnp.asarray(Kxm_x, dtype),
-        Mxm=jnp.asarray(Mxm_x, dtype),
-        Kym=jnp.asarray(Kym_y, dtype),
-        Mym=jnp.asarray(Mym_y, dtype),
-        Kzm=_tile2(K1m, sx, sy, dtype),
-        Mzm=_tile2(M1m, sx, sy, dtype),
-    )
-
-
-def _ext_axis(t: jnp.ndarray, h: int, axis: int, axis_name: str,
-              S: int) -> jnp.ndarray:
-    """Prepend/append ``h`` planes from the left/right neighbours along one
-    sharded axis (zeros at the global ends — lax.ppermute yields zeros for
-    unpaired shards).  The 2D-pencil generalisation of
-    sharding.ShardedFusedChebyshev._ext_both."""
-    if S == 1:
-        z = jnp.zeros(t.shape[:axis] + (h,) + t.shape[axis + 1:], t.dtype)
-        return jnp.concatenate([z, t, z], axis=axis)
-    fwd = [(i, i + 1) for i in range(S - 1)]
-    bwd = [(i + 1, i) for i in range(S - 1)]
-    n_ax = t.shape[axis]
-    left = jax.lax.ppermute(
-        jax.lax.slice_in_dim(t, n_ax - h, n_ax, axis=axis), axis_name, fwd
-    )
-    right = jax.lax.ppermute(
-        jax.lax.slice_in_dim(t, 0, h, axis=axis), axis_name, bwd
-    )
-    return jnp.concatenate([left, t, right], axis=axis)
-
-
-def _build_stacked_cheb2_2d(
-    space: FESpace, sx: int, sy: int, dtype, interpret: bool = False,
-    bx: int | None = None, by: int | None = None, exact: bool = False,
-    zpad: int | None = None,
-):
-    """Stacked xext+yext Cheb2Kernel for the 2D-pencil pair smoother, or
-    None if ineligible.  The per-block x (y) matrix/factor stacks of the
-    GLOBAL kernel partition naturally per x- (y-) shard; everything else
-    broadcasts.  Inside shard_map the kernel is block-for-block the
-    single-chip pair on the same windows (the 2D analog of
-    parallel/poisson.py:_build_stacked_cheb2)."""
-    import dataclasses as _dc
-
-    from ..ops.pallas_cheb2 import _roundup8, cheb2_vmem_ok, make_cheb2
-    from ..ops.pallas_laplace import lane_pad
-
-    if dtype != jnp.float32:
-        return None
-    n, p = space.mesh.cells_per_axis, space.degree
-    if n % sx or n % sy:
-        return None
-    nlx, nly = n // sx, n // sy
-    zp = lane_pad(space) if zpad is None else zpad
-    Zk = n * p + zp  # kernel lane extent (zpad lanes are inert zeros)
-    if not interpret and (Zk < 128 or Zk % 128 != 0):
-        return None
-    Hd = _roundup8(2 * p)
-
-    def pickb(cells, req):
-        for b in (16, 8, 4, 2):
-            if b == 16 and Zk > 256:
-                continue
-            if (cells % b == 0 and (b * p) % 8 == 0 and b * p >= req
-                    and cheb2_vmem_ok(b, b, p, Zk)):
-                return b
-        return None
-
-    bx = bx if bx is not None else pickb(nlx, 2 * p)
-    by = by if by is not None else pickb(nly, Hd)
-    if bx is None or by is None:
-        return None
-    if not (interpret or cheb2_vmem_ok(bx, by, p, Zk)):
-        return None
-    kern = make_cheb2(space, dtype, bx=bx, by=by, zpad=zp,
-                      interpret=interpret, exact=exact)
-    nbi_loc, nbj_loc = nlx // bx, nly // by
-    if nbi_loc == 0 or nlx % bx or nbj_loc == 0 or nly % by:
-        return None
-
-    def part_x(a):  # [sx*nbi_loc, ...] -> [sx, sy, nbi_loc, ...]
-        a = a.reshape((sx, nbi_loc) + a.shape[1:])
-        return jnp.broadcast_to(a[:, None], (sx, sy) + a.shape[1:])
-
-    def part_y(a):  # [sy*nbj_loc, ...] -> [sx, sy, nbj_loc, ...]
-        a = a.reshape((sy, nbj_loc) + a.shape[1:])
-        return jnp.broadcast_to(a[None], (sx, sy) + a.shape[1:])
-
-    def tile(a):
-        return jnp.broadcast_to(a[None, None], (sx, sy) + a.shape)
-
-    x_mat_idx = {2, 3, 6, 7}  # S1Kx, S1Mx, S2Kx, S2Mx
-    y_mat_idx = {4, 5, 8, 9}  # S1Ky, S1My, S2Ky, S2My
-    x_fac_idx = {0, 1}  # f0xK, f0xM
-    y_fac_idx = {2, 3}  # f0yK, f0yM
-    return _dc.replace(
-        kern,
-        n=(nlx, nly, n),
-        xext=True,
-        yext=True,
-        mats=tuple(
-            part_x(m) if ix in x_mat_idx
-            else part_y(m) if ix in y_mat_idx else tile(m)
-            for ix, m in enumerate(kern.mats)
-        ),
-        facs=tuple(
-            part_x(f) if ix in x_fac_idx
-            else part_y(f) if ix in y_fac_idx else tile(f)
-            for ix, f in enumerate(kern.facs)
-        ),
-    )
-
-
-@pytree_dataclass
-class ShardedFused2DChebyshev:
-    """Halo-aware fused Chebyshev smoothing on pencil-sharded pallas levels.
-
-    The 2D-pencil counterpart of sharding.ShardedFusedChebyshev, built
-    entirely on the two-step pair kernel (ops/pallas_cheb2.py) in xext+yext
-    mode: before each pair the d/r halos (2p/p planes in x, the 8-rounded
-    Hd/Hr planes in y, per side) ship via ordered ppermute exchanges
-    (y first, then x of the y-extended state, so corner halos arrive
-    transitively) and every in-window output row is exact — no boundary
-    corrections.  The entry residual half-step runs on the EXACT sharded
-    banded operator (the production invariant: residuals stay f32-exact on
-    the banded core).  ODD recurrence step counts run the tail step as a
-    ZERO-COEFFICIENT pair (scal[2] = scal[3] = 0 makes step 2 the identity:
-    d2 = 0, x2 = x1 — exact, at the cost of one wasted A·d apply on a
-    single level), so any degree >= 2 rides the fused path.  Reference
-    parity: one hot kernel serial and MPI
-    (include/operators/portable_laplace_operator.h:557-719).
-
-    Public surface is full-slab IO (smooth / apply), so the sharded
-    V-cycle composition is unchanged.
-    """
-
-    sx: int = static_field()
-    sy: int = static_field()
-    degree: int = static_field()
-    op: object = None  # exact ShardedPallas2DLaplace (residual entry)
-    op_cheb2: object = None  # xext+yext Cheb2Kernel
-    theta: jnp.ndarray = None
-    delta: jnp.ndarray = None
-
-    @property
-    def _dims(self):
-        """(grid_shape, Lx, Ly, Zr): Zr is the REAL trimmed lane extent;
-        lane-padded kernels carry state with Zr + zpad inert zero lanes."""
-        loc = self.op.local
-        g = loc.grid_shape
-        return g, g[0] - 1, g[1] - 1, loc.n[2] * loc.degree
-
-    @property
-    def _zp(self):
-        return getattr(self.op.local, "zpad", 0)
-
-    def _trim(self, t):
-        g, Lx, Ly, Z = self._dims
-        t = t.reshape(g)[:Lx, :Ly, :Z]
-        if self._zp:
-            t = jnp.pad(t, ((0, 0), (0, 0), (0, self._zp)))
-        return t
-
-    def _diag_trimmed(self):
-        loc = self.op.local
-        _, Lx, Ly, Z = self._dims
-
-        def zext(v):  # pad lanes hold 1.0 (state is zero there; 0/1 == 0)
-            v = v[:Z]
-            if self._zp:
-                v = jnp.pad(v, (0, self._zp), constant_values=1.0)
-            return v
-
-        xK = loc.dK1[0][:Lx].reshape(-1, 1, 1)
-        xM = loc.dM1[0][:Lx].reshape(-1, 1, 1)
-        yK = loc.dK1[1][:Ly].reshape(1, -1, 1)
-        yM = loc.dM1[1][:Ly].reshape(1, -1, 1)
-        zK = zext(loc.dK1[2]).reshape(1, 1, -1)
-        zM = zext(loc.dM1[2]).reshape(1, 1, -1)
-        return xK * yM * zM + xM * (yK * zM + yM * zK)
-
-    def _ext2(self, t, hx, hy):
-        t = _ext_axis(t, hy, 1, AY, self.sy)
-        return _ext_axis(t, hx, 0, AX, self.sx)
-
-    def _to_full(self, x):
-        """Trimmed per-shard state -> full consistent pencil slab: the
-        duplicated planes come from the right y/x neighbours (the x payload
-        is the y-APPENDED state, so the corner point rides along); Dirichlet
-        planes re-padded with zeros."""
-        if self.sy == 1:
-            py = jnp.zeros_like(x[:, :1])
-        else:
-            bwd = [(j + 1, j) for j in range(self.sy - 1)]
-            py = jax.lax.ppermute(x[:, :1], AY, bwd)
-        x = jnp.concatenate([x, py], axis=1)
-        if self.sx == 1:
-            px = jnp.zeros_like(x[:1])
-        else:
-            bwd = [(i + 1, i) for i in range(self.sx - 1)]
-            px = jax.lax.ppermute(x[:1], AX, bwd)
-        x = jnp.concatenate([x, px], axis=0)
-        if self._zp:
-            x = x[:, :, : self._dims[3]]
-        return jnp.pad(x, ((0, 0), (0, 0), (0, 1)))
-
-    def _steps(self, r, d, x, k0: int = 0, rho: float | None = None):
-        from ..ops.pallas_cheb2 import _roundup8
-
-        p = self.op_cheb2.degree
-        Hd = _roundup8(2 * p)
-        Hr = _roundup8(p)
-        sigma1 = self.theta / self.delta
-        if rho is None:
-            rho = 1.0 / sigma1
-        n = self.degree - 1
-        k = k0
-        while k < n:
-            rho1 = 1.0 / (2.0 * sigma1 - rho)
-            if k + 1 == n:
-                # odd tail: ONE step as a zero-coefficient pair — step 2
-                # collapses to the identity (d2 = 0·d1 + 0·r2/diag = 0,
-                # x2 = x1), so "cheb2l" returns exactly the single-step x'
-                zero = jnp.zeros_like(self.delta)
-                scal = jnp.stack([
-                    rho1 * rho, 2.0 * rho1 / self.delta, zero, zero,
-                ]).astype(jnp.float32)
-                outs = self.op_cheb2.steps2(
-                    self._ext2(d, 2 * p, Hd), self._ext2(r, p, Hr), x,
-                    scal, "cheb2l", sdtype="f32",
-                )
-                return outs[0]
-            rho2 = 1.0 / (2.0 * sigma1 - rho1)
-            scal = jnp.stack([
-                rho1 * rho, 2.0 * rho1 / self.delta,
-                rho2 * rho1, 2.0 * rho2 / self.delta,
-            ]).astype(jnp.float32)
-            last = k + 2 == n
-            outs = self.op_cheb2.steps2(
-                self._ext2(d, 2 * p, Hd), self._ext2(r, p, Hr), x,
-                scal, "cheb2l" if last else "cheb2", sdtype="f32",
-            )
-            if last:
-                return outs[0]
-            r, d, x = outs
-            rho = rho2
-            k += 2
-        return x
-
-    def apply(self, b: jnp.ndarray) -> jnp.ndarray:
-        """Preconditioner vmult with x0 = 0 on a masked full pencil slab.
-
-        Entry pair in mode "cheb2f0": d0 derived IN-KERNEL from the
-        halo-extended b window, exactly like the single-chip and 1D-slab
-        paths (no materialized r0/d0 HBM streams for the first two
-        steps)."""
-        from ..ops.pallas_cheb2 import _roundup8
-
-        bt = self._trim(b)
-        n = self.degree - 1
-        if n >= 2:
-            p = self.op_cheb2.degree
-            sigma1 = self.theta / self.delta
-            rho = 1.0 / sigma1
-            rho1 = 1.0 / (2.0 * sigma1 - rho)
-            rho2 = 1.0 / (2.0 * sigma1 - rho1)
-            scal = jnp.stack([
-                rho1 * rho, 2.0 * rho1 / self.delta,
-                rho2 * rho1, 2.0 * rho2 / self.delta, self.theta,
-            ]).astype(jnp.float32)
-            mode = "cheb2f0l" if n == 2 else "cheb2f0"
-            outs = self.op_cheb2.steps2(
-                self._ext2(bt, 2 * p, _roundup8(2 * p)), None, None,
-                scal, mode, sdtype="f32",
-            )
-            if n == 2:
-                return self._to_full(outs[0])
-            r, d, x = outs
-            return self._to_full(self._steps(r, d, x, k0=2, rho=rho2))
-        d0 = bt / (self.theta * self._diag_trimmed())
-        return self._to_full(self._steps(bt, d0, d0))
-
-    def smooth(self, u: jnp.ndarray, rhs: jnp.ndarray) -> jnp.ndarray:
-        r0 = self._trim(rhs - self.op.apply(u))
-        d0 = r0 / (self.theta * self._diag_trimmed())
-        x0 = self._trim(u) + d0
-        return self._to_full(self._steps(r0, d0, x0))
-
-
-@pytree_dataclass
 class Gather2DTransfer:
     """Boundary transfer between a pencil-SHARDED fine level and a REPLICATED
     coarse level on a 2D device mesh (the 2D analog of
@@ -656,6 +175,8 @@ class Sharded2DStats:
     solution_l2_norm: float
     n_dofs: int
     mesh_shape: tuple
+    # (device, shard shape) of every piece of the sharded solution
+    placement: tuple = ()
 
 
 class Sharded2DGeometricPoisson:
@@ -670,15 +191,11 @@ class Sharded2DGeometricPoisson:
         devices=None,
         dtype=jnp.float64,
         variant: str = "kron",
-        pallas_interpret: bool = False,
-        pallas_zpad: int | None = None,
     ):
         if dim < 2:
             raise ValueError("2D pencil sharding needs dim >= 2")
-        self.pallas_interpret = pallas_interpret
-        # explicit lane padding for the FINEST level (coarser levels follow
-        # the lane_pad policy) — interpret-mode tests use this
-        self.pallas_zpad = pallas_zpad
+        if variant not in ("sumfac", "kron"):
+            raise ValueError(f"unknown sharded variant: {variant!r}")
         sx, sy = mesh_shape
         if devices is None:
             devices = jax.devices()
@@ -760,9 +277,7 @@ class Sharded2DGeometricPoisson:
         n = sp.mesh.cells_per_axis
 
         if replicated:
-            op_plain = make_laplace(
-                sp, dtype, variant="kron" if variant == "pallas" else variant
-            )
+            op_plain = make_laplace(sp, dtype, variant=variant)
             v0 = _pseudo_random_grid(sp.grid_shape, dtype) * sp.free_mask()
             n_iter = min(sp.n_dofs, 128) if coarse else 10
             mn, mx = estimate_eigenvalues(
@@ -778,55 +293,6 @@ class Sharded2DGeometricPoisson:
             )
             return MGLevel(op=_tile_tree2(op_plain, sx, sy),
                            smoother=smoother, transfer=None)
-        if variant == "pallas":
-            zp = self.pallas_zpad if (
-                getattr(self, "pallas_zpad", None) is not None
-                and sp is self.spaces[-1]) else None
-            op2d = _build_stacked_pallas2d(
-                sp, sx, sy, dtype, interpret=self.pallas_interpret, zpad=zp
-            )
-            if op2d is not None:
-                twin = make_laplace(sp, dtype, variant="kron")
-                v0 = _pseudo_random_grid(sp.grid_shape, dtype) * sp.free_mask()
-                n_iter = sp.n_dofs if coarse else 10
-                mn, mx = estimate_eigenvalues(
-                    twin, None, n_iter, jnp.asarray(v0, dtype)
-                )
-                rng = 1e-3 if coarse else 15.0
-                alpha, beta, deg = chebyshev_bounds(
-                    mn, mx, rng, None if coarse else 5
-                )
-                smoother = None
-                if (not coarse and deg is not None and deg >= 2
-                        and os.environ.get("PMG_CHEB2", "1") == "1"):
-                    # production fast path on the 2D pencil mesh: the
-                    # recurrence runs as xext+yext cheb2 pairs; an odd
-                    # step count runs its tail as a zero-coefficient pair
-                    # (see ShardedFused2DChebyshev._steps)
-                    cheb2_2d = _build_stacked_cheb2_2d(
-                        sp, sx, sy, dtype, interpret=self.pallas_interpret,
-                        zpad=zp,
-                    )
-                    if cheb2_2d is not None:
-                        smoother = ShardedFused2DChebyshev(
-                            sx=sx, sy=sy, degree=deg,
-                            op=None,  # wired to the level op in shard_map
-                            op_cheb2=cheb2_2d,
-                            theta=_tile2(np.full((), (beta + alpha) / 2.0),
-                                         sx, sy, dtype),
-                            delta=_tile2(np.full((), (beta - alpha) / 2.0),
-                                         sx, sy, dtype),
-                        )
-                if smoother is None:
-                    smoother = Chebyshev(
-                        degree=deg, op=None, inv_diag=None,
-                        theta=_tile2(np.full((), (beta + alpha) / 2.0), sx,
-                                     sy, dtype),
-                        delta=_tile2(np.full((), (beta - alpha) / 2.0), sx,
-                                     sy, dtype),
-                    )
-                return MGLevel(op=op2d, smoother=smoother, transfer=None)
-            variant = "kron"  # ineligible level: assembled-Kronecker path
         b = sp.basis
         qm = np.array(1.0)
         for _ in range(dim):
@@ -943,23 +409,18 @@ class Sharded2DGeometricPoisson:
         out = []
         for i, lvl in enumerate(levels_stacked):
             op_loc = _unstack(_unstack(lvl.op))
-            if i < R or isinstance(op_loc, ShardedPallas2DLaplace):
-                op_w = op_loc  # replicated plain op / self-contained wrapper
+            if i < R:
+                op_w = op_loc  # replicated plain op
             else:
                 op_w = Sharded2DLaplace(sx=self.sx, sy=self.sy, local=op_loc)
             sm_st = lvl.smoother
-            if isinstance(sm_st, ShardedFused2DChebyshev):
-                sm = dataclasses.replace(
-                    _unstack(_unstack(sm_st)), op=op_w
-                )
-            else:
-                sm = Chebyshev(
-                    degree=sm_st.degree,
-                    op=op_w,
-                    inv_diag=None,  # op_w.inv_diag from local 1D factors
-                    theta=sm_st.theta[0, 0],
-                    delta=sm_st.delta[0, 0],
-                )
+            sm = Chebyshev(
+                degree=sm_st.degree,
+                op=op_w,
+                inv_diag=None,  # op_w.inv_diag from local 1D factors
+                theta=sm_st.theta[0, 0],
+                delta=sm_st.delta[0, 0],
+            )
             if lvl.transfer is None:
                 tr = None
             elif i <= R and R > 0:
@@ -991,7 +452,8 @@ class Sharded2DGeometricPoisson:
                 wfull = w.reshape(w.shape + (1,) * (self.dim - 2))
 
                 def dot(a, b):
-                    s = jnp.vdot(a * wfull, b)
+                    s = jnp.vdot(a * wfull, b,
+                                 precision=jax.lax.Precision.HIGHEST)
                     return jax.lax.psum(jax.lax.psum(s, AX), AY)
 
                 mg = VCycle(
@@ -1023,6 +485,7 @@ class Sharded2DGeometricPoisson:
             solution_l2_norm=l2_norm(fine, x),
             n_dofs=fine.n_dofs,
             mesh_shape=(sx, sy),
+            placement=shard_placement(x_st),
         )
         if verbose:
             print(

@@ -4,7 +4,7 @@ The multi-chip counterpart of models/poisson.py: the full solve (CG +
 V-cycle + smoothers + transfers + operator) runs inside ONE ``jax.shard_map``
 region over a 1D device mesh, with cell slabs sharded along grid axis 0 and
 single-plane halos exchanged via ppermute (parallel/sharding.py).  This is
-the TPU-native analog of running the reference drivers under ``mpirun -n N``
+the analog of running the reference drivers under ``mpirun -n N``
 with deal.II's distributed triangulation (reference:
 source/geometric_multigrid/program.cc:73-75,124-132,452).
 
@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 
 import numpy as np
 import jax
@@ -51,13 +50,13 @@ from ..solvers.vcycle import MGLevel, VCycle
 from ..ops.transfer import make_h_transfer
 from .sharding import (
     GatherTransfer,
-    ShardedFusedChebyshev,
     ShardedLaplaceOperator,
     ShardedTransfer,
     dot_weights_axis0,
     estimate_eigenvalues_sharded,
     make_sharded_dot,
     partition_axis0,
+    shard_placement,
     unpartition_axis0,
 )
 
@@ -183,161 +182,6 @@ def _build_stacked_p_transfer(
     )
 
 
-def _build_stacked_pallas(
-    space: FESpace, S: int, dtype, core: str = "banded",
-    interpret: bool = False, zpad: int | None = None,
-):
-    """Stacked ShardedPallasLaplace for a level, or None if ineligible.
-
-    The slab kernel is shard-independent except for the axis-0 mask/diag
-    factors, which are partitioned slices of the global 1D vectors.
-    ``zpad=None`` follows the lane_pad policy (lane-padded Q5/Q7-style
-    grids ride the same slab kernels — the z axis is not the sharded
-    axis); an explicit value is for interpret-mode tests on tiny grids."""
-    import dataclasses as _dc
-
-    from ..ops.pallas_laplace import (
-        lane_pad,
-        make_pallas_slab,
-        slab_pallas_eligible,
-    )
-    from .sharding import ShardedPallasLaplace
-
-    if dtype != jnp.float32:
-        return None
-    n, p = space.mesh.cells_per_axis, space.degree
-    if n % S:
-        return None
-    n_loc = n // S
-    zp = lane_pad(space) if zpad is None else zpad
-    Zk = n * p + zp  # kernel lane extent
-
-    def pick(limit, cells):
-        for b in (16, 8, 4, 2, 1):
-            # 16x16 blocks with >256 lanes crash the Mosaic compiler —
-            # mirror the cap make_laplace_auto applies (lanes Z is a
-            # GLOBAL extent, identical for the slab kernel)
-            if b == 16 and Zk > 256:
-                continue
-            if b <= limit and cells % b == 0 and (b * p) % 8 == 0:
-                return b
-        return None
-
-    bx = pick(16, n_loc)
-    by = pick(16, n)
-    if bx is None or by is None:
-        return None
-    if not (interpret or slab_pallas_eligible(space, n_loc, bx, by, zpad)):
-        return None
-    base = make_pallas_slab(
-        space, n_loc, dtype, bx=bx, by=by, core=core, interpret=interpret,
-        zpad=zp,
-    )
-    m1 = space.free_mask_1d()
-    gK, gM = diagonal_1d_factors(space)
-
-    def part(v):
-        return jnp.asarray(partition_axis0(v, n, p, S), dtype)
-
-    stacked = _tile_tree(base, S)
-    stacked = _dc.replace(
-        stacked,
-        mask1=(part(m1),) + stacked.mask1[1:],
-        dK1=(part(gK),) + stacked.dK1[1:],
-        dM1=(part(gM),) + stacked.dM1[1:],
-    )
-    Kp, Mp = _partial_assembled_1d(space, n_loc)
-    K1, M1 = assembled_1d_matrices(space)
-    K1m = m1[:, None] * K1 * m1[None, :]
-    M1m = m1[:, None] * M1 * m1[None, :]
-    return ShardedPallasLaplace(
-        axis_name=AXIS,
-        n_shards=S,
-        local=stacked,
-        thin_kx=_tile(Kp[-1, -(p + 1):], S, dtype),
-        thin_mx=_tile(Mp[-1, -(p + 1):], S, dtype),
-        K1m=_tile(K1m, S, dtype),
-        M1m=_tile(M1m, S, dtype),
-    )
-
-
-def _build_stacked_cheb2(
-    space: FESpace, S: int, dtype, interpret: bool = False,
-    bx: int | None = None, by: int | None = None, exact: bool = False,
-    zpad: int | None = None,
-):
-    """Stacked xext-mode Cheb2Kernel for the sharded pair smoother, or None.
-
-    The per-block x matrix/factor stacks of the GLOBAL kernel partition
-    naturally per shard (global block s*nbi_loc + i is shard s's local
-    block i); everything else broadcasts.  Inside shard_map the kernel is
-    bitwise the single-chip pair on the same windows."""
-    import dataclasses as _dc
-
-    from ..ops.pallas_cheb2 import (
-        Cheb2Kernel,
-        _roundup8,
-        cheb2_vmem_ok,
-        make_cheb2,
-    )
-    from ..ops.pallas_laplace import lane_pad
-
-    if dtype != jnp.float32:
-        return None
-    n, p = space.mesh.cells_per_axis, space.degree
-    if n % S:
-        return None
-    n_loc = n // S
-    zp = lane_pad(space) if zpad is None else zpad
-    Zk = n * p + zp  # kernel lane extent (zpad lanes are inert zeros)
-    if not interpret and (Zk < 128 or Zk % 128 != 0):
-        return None
-    Hd = _roundup8(2 * p)
-
-    def pickb(cells, req):
-        for b in (16, 8, 4, 2):
-            if b == 16 and Zk > 256:
-                continue
-            if (cells % b == 0 and (b * p) % 8 == 0 and b * p >= req
-                    and cheb2_vmem_ok(b, b, p, Zk)):
-                return b
-        return None
-
-    bx = bx if bx is not None else pickb(n_loc, 2 * p)
-    by = by if by is not None else pickb(n, Hd)
-    if bx is None or by is None:
-        return None
-    if not (interpret or cheb2_vmem_ok(bx, by, p, Zk)):
-        return None
-    kern = make_cheb2(space, dtype, bx=bx, by=by, zpad=zp,
-                      interpret=interpret, exact=exact)
-    nbi_loc = n_loc // bx
-    if nbi_loc == 0 or n_loc % bx:
-        return None
-
-    def part_blocks(a):  # [S*nbi_loc, ...] -> [S, nbi_loc, ...]
-        return a.reshape((S, nbi_loc) + a.shape[1:])
-
-    def tile(a):
-        return jnp.broadcast_to(a[None], (S,) + a.shape)
-
-    x_mat_idx = {2, 3, 6, 7}  # S1Kx, S1Mx, S2Kx, S2Mx
-    x_fac_idx = {0, 1}  # f0xK, f0xM
-    return _dc.replace(
-        kern,
-        n=(n_loc, n, n),
-        xext=True,
-        mats=tuple(
-            part_blocks(m) if ix in x_mat_idx else tile(m)
-            for ix, m in enumerate(kern.mats)
-        ),
-        facs=tuple(
-            part_blocks(f) if ix in x_fac_idx else tile(f)
-            for ix, f in enumerate(kern.facs)
-        ),
-    )
-
-
 def _unstack(tree):
     """Drop the leading (sharded, now size-1) axis from every leaf."""
     return jax.tree_util.tree_map(lambda a: a[0], tree)
@@ -359,6 +203,8 @@ class ShardedSolveStats:
     n_dofs: int
     n_shards: int
     dofs_per_level: list
+    # (device, shard shape) of every piece of the sharded solution
+    placement: tuple = ()
 
 
 class ShardedGeometricPoisson:
@@ -374,8 +220,6 @@ class ShardedGeometricPoisson:
         variant: str = "sumfac",
         sharded_setup: bool = False,
         replicate_coarse: bool = True,
-        pallas_interpret: bool = False,
-        pallas_zpad: int | None = None,
     ):
         if devices is None:
             devices = jax.devices()
@@ -383,17 +227,14 @@ class ShardedGeometricPoisson:
         S = len(self.devices)
         if S & (S - 1):
             raise ValueError("n_devices must be a power of two")
+        if variant not in ("sumfac", "kron"):
+            raise ValueError(f"unknown sharded variant: {variant!r}")
         self.n_shards = S
         self.dtype = dtype
         self.dim = dim
         self.degree = degree
         self.variant = variant
         self.sharded_setup = sharded_setup
-        self.pallas_interpret = pallas_interpret
-        # explicit zpad applies to the FINEST level only (coarser levels
-        # have different lane extents; their zpad follows the lane_pad
-        # policy) — interpret-mode tests exercise lane padding this way
-        self.pallas_zpad = pallas_zpad
 
         min_ref = max(int(math.ceil(math.log2(max(S, 1)))), 0)
         if refinements < min_ref:
@@ -424,7 +265,6 @@ class ShardedGeometricPoisson:
         R = getattr(self, "n_replicated", 0)
         for i, sp in enumerate(self.spaces):
             replicated = i < R
-            fused_stacked = None
             # coarse level: reference-faithful m() = n_dofs eig-CG iterations
             # (source/geometric_multigrid/program.cc:274-279); the coarse
             # space is the replicated 1-cell base mesh, so this stays tiny
@@ -432,54 +272,17 @@ class ShardedGeometricPoisson:
             rng_v = _pseudo_random_grid(sp.grid_shape, dtype) * sp.free_mask()
             if replicated:
                 # below shard granularity: a plain full-grid operator,
-                # identical on every chip (deterministic replicated compute)
-                op_plain = make_laplace(
-                    sp, dtype,
-                    variant="kron" if variant == "pallas" else variant,
-                )
+                # identical on every device (deterministic replicated compute)
+                op_plain = make_laplace(sp, dtype, variant=variant)
                 op_stacked = _tile_tree(op_plain, S)
                 mn, mx = estimate_eigenvalues(
                     op_plain, None, n_iter, jnp.asarray(rng_v, dtype)
                 )
             else:
-                op_stacked = None
-                fused_stacked = None
-                cheb2_stacked = None
-                if variant == "pallas":
-                    finest = i == len(self.spaces) - 1
-                    zp = self.pallas_zpad if (
-                        finest and getattr(self, "pallas_zpad", None)
-                        is not None) else None
-                    op_stacked = _build_stacked_pallas(
-                        sp, S, dtype,
-                        interpret=getattr(self, "pallas_interpret", False),
-                        zpad=zp,
-                    )
-                    if op_stacked is not None and i > 0:
-                        # bf16 MXU twin driving the fused Chebyshev
-                        # recurrence (same production fast path as
-                        # single-chip, see ShardedFusedChebyshev)
-                        fused_stacked = _build_stacked_pallas(
-                            sp, S, dtype, core="mxu",
-                            interpret=getattr(self, "pallas_interpret", False),
-                            zpad=zp,
-                        )
-                        if fused_stacked is not None and os.environ.get(
-                                "PMG_CHEB2", "1") == "1":
-                            cheb2_stacked = _build_stacked_cheb2(
-                                sp, S, dtype,
-                                interpret=getattr(
-                                    self, "pallas_interpret", False),
-                                zpad=zp,
-                            )
-                if op_stacked is None:
-                    op_stacked = _build_stacked_operator(
-                        sp, S, dtype,
-                        variant="kron" if variant == "pallas" else variant,
-                    )
-                from .sharding import ShardedPallasLaplace as _SPL
-
-                if sharded_setup and not isinstance(op_stacked, _SPL):
+                op_stacked = _build_stacked_operator(
+                    sp, S, dtype, variant=variant
+                )
+                if sharded_setup:
                     n = sp.mesh.cells_per_axis
                     v0_st = jnp.asarray(
                         partition_axis0(rng_v, n, sp.degree, S), dtype
@@ -500,27 +303,13 @@ class ShardedGeometricPoisson:
                 alpha, beta, deg = chebyshev_bounds(mn, mx, 1e-3, None)
             else:
                 alpha, beta, deg = chebyshev_bounds(mn, mx, 15.0, 5)
-            if fused_stacked is not None:
-                # production fast path under shard_map: fused residual +
-                # recurrence kernels with halo'd plane-0 corrections
-                smoother = ShardedFusedChebyshev(
-                    axis_name=AXIS,
-                    n_shards=S,
-                    degree=deg,
-                    op=None,  # wired to the level ShardedPallasLaplace
-                    op_smooth=fused_stacked,
-                    op_cheb2=cheb2_stacked,
-                    theta=_tile(np.full((), (beta + alpha) / 2.0), S, dtype),
-                    delta=_tile(np.full((), (beta - alpha) / 2.0), S, dtype),
-                )
-            else:
-                smoother = Chebyshev(
-                    degree=deg,
-                    op=None,  # wired to the (sharded/replicated) op in shard_map
-                    inv_diag=None,  # derived from the operator's 1D factors
-                    theta=_tile(np.full((), (beta + alpha) / 2.0), S, dtype),
-                    delta=_tile(np.full((), (beta - alpha) / 2.0), S, dtype),
-                )
+            smoother = Chebyshev(
+                degree=deg,
+                op=None,  # wired to the (sharded/replicated) op in shard_map
+                inv_diag=None,  # derived from the operator's 1D factors
+                theta=_tile(np.full((), (beta + alpha) / 2.0), S, dtype),
+                delta=_tile(np.full((), (beta - alpha) / 2.0), S, dtype),
+            )
             if i == 0:
                 transfer = None
             elif i < R:
@@ -562,29 +351,24 @@ class ShardedGeometricPoisson:
         transfers (replicated on every chip); the boundary level uses
         GatherTransfer; everything above is halo-exchange sharded."""
         S = self.n_shards
-        from .sharding import ShardedPallasLaplace as _SPL
-
         R = getattr(self, "n_replicated", 0)
         out = []
         for i, lvl in enumerate(levels_stacked):
             op_loc = _unstack(lvl.op)
-            if i < R or isinstance(op_loc, _SPL):
-                op_w = op_loc  # replicated plain op / self-contained wrapper
+            if i < R:
+                op_w = op_loc  # replicated plain op
             else:
                 op_w = ShardedLaplaceOperator(
                     axis_name=AXIS, n_shards=S, local=op_loc
                 )
             sm_st = lvl.smoother
-            if isinstance(sm_st, ShardedFusedChebyshev):
-                sm = dataclasses.replace(_unstack(sm_st), op=op_w)
-            else:
-                sm = Chebyshev(
-                    degree=sm_st.degree,
-                    op=op_w,
-                    inv_diag=None,  # op_w.inv_diag from local 1D factors
-                    theta=sm_st.theta[0],
-                    delta=sm_st.delta[0],
-                )
+            sm = Chebyshev(
+                degree=sm_st.degree,
+                op=op_w,
+                inv_diag=None,  # op_w.inv_diag from local 1D factors
+                theta=sm_st.theta[0],
+                delta=sm_st.delta[0],
+            )
             if lvl.transfer is None:
                 tr = None
             elif i <= R and R > 0:
@@ -649,6 +433,7 @@ class ShardedGeometricPoisson:
             n_dofs=fine.n_dofs,
             n_shards=S,
             dofs_per_level=[sp.n_dofs for sp in self.spaces],
+            placement=shard_placement(x_st),
         )
         if verbose:
             print(

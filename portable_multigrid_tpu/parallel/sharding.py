@@ -1,6 +1,6 @@
 """Multi-chip sharding: halo plane exchange + sharded operator/transfer wrappers.
 
-TPU-native replacement for the reference's MPI domain decomposition
+JAX replacement for the reference's MPI domain decomposition
 (SURVEY.md §2.3 item 1): deal.II partitions cells across ranks and exchanges
 ghost DoFs on reads (``update_ghost_values``) and owner-sums boundary
 contributions on writes (``compress(add)``) around every operator/transfer
@@ -18,7 +18,7 @@ chip, with the single shared DoF plane between neighboring slabs stored
     exchange (`halo_sum`: each chip ppermutes its partial boundary planes to
     its neighbors and adds what it receives) — this fuses deal.II's
     update_ghost_values + compress(add) pair into a single nearest-neighbor
-    collective that XLA schedules asynchronously over ICI;
+    collective (a ppermute, which XLA lowers to NCCL on GPUs);
   * inner products weight the duplicated planes by 1/2 and psum — the analog
     of deal.II's owned-dof dot + MPI_Allreduce.
 
@@ -107,8 +107,8 @@ class ShardedTransfer:
     # the sharded GRID axis of the fields this transfer moves: 0 for scalar
     # fields, 1 for component-major vector fields (elasticity) — halo-summing
     # axis 0 of a vector field would exchange planes along the COMPONENT
-    # axis (the r5 sharded-elasticity multi-level bug, caught by
-    # tests/test_sharding.py::test_sharded_pallas_elasticity_solve_*)
+    # axis, and a multi-level sharded elasticity solve then converges to
+    # a wrong answer (tests/test_sharding.py::test_sharded_elasticity_*)
     halo_axis: int = static_field(default=0)
     local: Transfer = None
 
@@ -142,7 +142,9 @@ def make_sharded_dot(
     )
 
     def dot(a: jnp.ndarray, b: jnp.ndarray):
-        return jax.lax.psum(jnp.vdot(a * w, b), axis_name)
+        return jax.lax.psum(
+            jnp.vdot(a * w, b, precision=jax.lax.Precision.HIGHEST),
+            axis_name)
 
     return dot
 
@@ -175,468 +177,16 @@ class ShardedElasticityOperator:
 
 
 @pytree_dataclass
-class ShardedPallasLaplace:
-    """Fused Pallas kernel on a slab-sharded grid: the kernel runs with
-    per-shard x-mask vectors (interior shard boundaries unmasked), emits raw
-    partial boundary planes, and ONE halo_sum completes the assembly before
-    the constraint-mask combine — the same single hot kernel for serial and
-    distributed runs as the reference (reference:
-    include/operators/portable_laplace_operator.h:557-719).
-
-    The kernel's trimmed output drops the slab's LAST x-plane; its raw
-    partial row is recomputed by a thin XLA contraction over the last p+1
-    planes (2% of the grid) with the slab-partial x row ``thin_x`` and the
-    masked global 1D matrices K1m/M1m."""
-
-    axis_name: str = static_field()
-    n_shards: int = static_field()
-    local: object = None  # PallasLaplaceOperator slab (xmask="vector")
-    thin_kx: jnp.ndarray = None  # [p+1] last row of the slab-partial K
-    thin_mx: jnp.ndarray = None
-    K1m: jnp.ndarray = None  # [N, N] mask-folded global 1D stiffness (y/z)
-    M1m: jnp.ndarray = None
-
-    @property
-    def inv_diag(self):
-        return self.local.inv_diag
-
-    @property
-    def mask(self):
-        return self.local.mask
-
-    def apply(self, u: jnp.ndarray) -> jnp.ndarray:
-        import jax
-
-        loc = self.local
-        p = loc.degree
-        u = u.reshape(loc.grid_shape)
-        uk = u
-        if loc.zpad:
-            # lane-padded kernel: extend the full grid's n2*p + 1 z planes
-            # to the kernel's Z = n2*p + zpad inert zero lanes (the z axis
-            # is orthogonal to the sharded x axis — single-chip mechanism)
-            uk = jnp.pad(u, ((0, 0), (0, 0), (0, loc.zpad - 1)))
-        raw = loc._run("apply", uk)  # [N0-1, N1-1, Z] raw partial (x) tiles
-        if loc.zpad:
-            raw = raw[:, :, : loc.n[2] * p]
-
-        # thin completion of the slab's last x-plane (raw partial row)
-        win = u[-(p + 1):] * loc.mask1[0][-(p + 1):].reshape(-1, 1, 1)
-        win = win * loc.mask1[1].reshape(1, -1, 1)
-        win = win * loc.mask1[2].reshape(1, 1, -1)
-        hi = jax.lax.Precision.HIGHEST
-
-        def ctr(t, W, ax):
-            return jnp.moveaxis(
-                jnp.tensordot(t, W, axes=((ax,), (1,)), precision=hi), -1, ax
-            )
-
-        b = ctr(win, self.M1m, 2)
-        a = ctr(win, self.K1m, 2)
-        mb = ctr(b, self.M1m, 1)
-        kb = ctr(b, self.K1m, 1)
-        ma = ctr(a, self.M1m, 1)
-        last = jnp.tensordot(self.thin_kx, mb, axes=(0, 0), precision=hi)
-        last = last + jnp.tensordot(
-            self.thin_mx, kb + ma, axes=(0, 0), precision=hi
-        )
-
-        N1 = loc.grid_shape[1]
-        Z = loc.n[2] * p
-        au = jnp.concatenate([raw, last[None, : N1 - 1, :Z]], axis=0)
-        au = jnp.pad(au, ((0, 0), (0, 1), (0, 1)))
-        au = halo_sum(au, self.axis_name, self.n_shards)
-        m = loc.mask
-        return m * au + (1.0 - m) * u
-
-    vmult = apply
-
-
-@pytree_dataclass
-class ShardedPallasElasticity:
-    """Fused Pallas VECTOR elasticity kernel on a slab-sharded grid — the
-    vector twin of :class:`ShardedPallasLaplace`: the kernel runs with the
-    per-shard x-mask vector (interior shard boundaries unmasked), emits raw
-    partial boundary planes per component, the slab's dropped last x-plane
-    is recomputed by thin XLA contractions of the last p+1 input planes
-    through ALL 21 Kronecker chains (x factors = last row of the slab's own
-    last cell's element matrices; y/z = mask-folded global 1D matrices),
-    and ONE 3-component halo_sum completes the assembly before the
-    constraint-mask combine.  Reference parity: the same single hot kernel
-    for serial and MPI runs, generalized to the vector operator
-    (include/operators/portable_laplace_operator.h:557-719)."""
-
-    axis_name: str = static_field()
-    n_shards: int = static_field()
-    local: object = None  # PallasElasticityOperator slab (xmask="vector")
-    # thin x row vectors [p+1]: last row of the slab-partial assembled
-    # K / M / G and of G^T (= last COLUMN of G)
-    thin_kx: jnp.ndarray = None
-    thin_mx: jnp.ndarray = None
-    thin_gx: jnp.ndarray = None
-    thin_hx: jnp.ndarray = None
-    # mask-folded global 1D matrices [N, N] for the y/z contractions
-    K1m: jnp.ndarray = None
-    M1m: jnp.ndarray = None
-    G1m: jnp.ndarray = None
-    H1m: jnp.ndarray = None  # G1m transposed (trial-derivative axes)
-
-    @property
-    def inv_diag(self):
-        return self.local.inv_diag
-
-    @property
-    def mask(self):
-        return self.local.mask
-
-    def _thin_last(self, u: jnp.ndarray):
-        """Raw partial contribution of OUR slab's cells to the dropped last
-        x-plane of (A M u)_c, per component c — the vector generalization of
-        ShardedPallasLaplace's thin completion (21 chains, ~2 % of the
-        grid's work in plain XLA)."""
-        loc = self.local
-        p = loc.degree
-        mu, lam = loc.mu, loc.lam
-        hi = jax.lax.Precision.HIGHEST
-        # masked input window: last p+1 x planes, full y/z extents
-        wins = [
-            u[a, -(p + 1):]
-            * loc.mask1[0][-(p + 1):].reshape(-1, 1, 1)
-            * loc.mask1[1].reshape(1, -1, 1)
-            * loc.mask1[2].reshape(1, 1, -1)
-            for a in range(3)
-        ]
-        thin = {"K": self.thin_kx, "M": self.thin_mx,
-                "G": self.thin_gx, "T": self.thin_hx}
-        glob = {"K": self.K1m, "M": self.M1m,
-                "G": self.G1m, "T": self.H1m}
-
-        def ctr(t, W, ax):
-            out = jnp.tensordot(t, W, axes=((ax,), (1,)), precision=hi)
-            return jnp.moveaxis(out, -1, ax)
-
-        def term(w, kinds):
-            t = ctr(w, glob[kinds[2]], 2)
-            t = ctr(t, glob[kinds[1]], 1)
-            return jnp.tensordot(thin[kinds[0]], t, axes=(0, 0),
-                                 precision=hi)
-
-        def kinds(e, f):
-            if e == f:
-                return tuple("K" if a == e else "M" for a in range(3))
-            return tuple(
-                "G" if a == e else "T" if a == f else "M" for a in range(3)
-            )
-
-        lasts = []
-        for c in range(3):
-            out = None
-            for a in range(3):
-                alpha = 2.0 * mu + lam if a == c else mu
-                t = alpha * term(wins[c], kinds(a, a))
-                out = t if out is None else out + t
-            for a in range(3):
-                if a == c:
-                    continue
-                out = out + mu * term(wins[a], kinds(a, c))
-                out = out + lam * term(wins[a], kinds(c, a))
-            lasts.append(out)
-        return lasts
-
-    def apply(self, u: jnp.ndarray) -> jnp.ndarray:
-        loc = self.local
-        p = loc.degree
-        u = u.reshape(loc.shape)
-        uk = u
-        if loc.zpad:
-            uk = jnp.pad(u, ((0, 0), (0, 0), (0, 0), (0, loc.zpad - 1)))
-        raws = loc._run("apply", uk)  # 3 x [N0-1, N1-1, Z] raw x-partials
-        Zr = loc.n[2] * p
-        if loc.zpad:
-            raws = [r[:, :, :Zr] for r in raws]
-        lasts = self._thin_last(u)
-        N1 = loc.grid_shape[1]
-        au = jnp.stack(
-            [
-                jnp.pad(
-                    jnp.concatenate(
-                        [raws[c], lasts[c][None, : N1 - 1, :Zr]], axis=0
-                    ),
-                    ((0, 0), (0, 1), (0, 1)),
-                )
-                for c in range(3)
-            ]
-        )
-        au = halo_sum(au, self.axis_name, self.n_shards, axis=1)
-        m = loc.mask[None]
-        return m * au + (1.0 - m) * u
-
-    vmult = apply
-
-
-@pytree_dataclass
-class ShardedFusedChebyshev:
-    """Halo-aware fused Chebyshev smoothing on slab-sharded pallas levels.
-
-    Runs the SAME fused kernels as the single-chip production smoother
-    (exact banded residual half-step, bf16 MXU recurrence core), on
-    per-shard TRIMMED state (duplicate-free: shard s owns planes
-    [s·L, (s+1)·L)).  Each kernel launch takes the x-FULL input (state plus
-    the right neighbour's first plane, ONE 1-plane ppermute) and computes
-    slab-local partial sums; the only globally incomplete entries are plane
-    0 (missing the left neighbour's cell contributions), corrected by a thin
-    XLA contraction of the sender's last p+1 planes ppermuted right and a
-    one-plane linear fix-up of (r, d, x) — exact because the recurrence
-    updates are linear in the residual.  Reference parity: one hot kernel
-    for serial and MPI runs
-    (include/operators/portable_laplace_operator.h:557-719).
-
-    Public surface is full-slab IO (smooth / apply / residual), so the
-    sharded V-cycle composition is unchanged.
-    """
-
-    axis_name: str = static_field()
-    n_shards: int = static_field()
-    degree: int = static_field()
-    op: object = None  # exact ShardedPallasLaplace (residuals, thin rows)
-    op_smooth: object = None  # mxu-core ShardedPallasLaplace (recurrence)
-    # optional two-step pair kernel (ops/pallas_cheb2.py) in xext mode: the
-    # x halos (2p planes of d, p of r, per side) ship by ppermute BEFORE
-    # each pair, so every in-window output row is exact — no plane-0
-    # corrections, and the per-block matrix stacks are the per-shard slices
-    # of the single-chip global stacks (bitwise the single-chip pair).
-    op_cheb2: object = None
-    theta: jnp.ndarray = None
-    delta: jnp.ndarray = None
-
-    # --- representation helpers ------------------------------------------
-    @property
-    def _dims(self):
-        """(grid_shape, L, N1m, Zr): Zr is the REAL trimmed lane extent
-        n2*p; lane-padded kernels (zpad > 0) carry state with Zr + zpad
-        inert zero lanes (see _zp) — the z axis is orthogonal to the
-        sharded x axis, so padding composes with slab sharding."""
-        loc = self.op.local
-        p = loc.degree
-        g = loc.grid_shape
-        return g, g[0] - 1, g[1] - 1, loc.n[2] * p
-
-    @property
-    def _zp(self):
-        return getattr(self.op.local, "zpad", 0)
-
-    def _ext_from_right(self, t):
-        """Append plane L = right neighbour's plane 0 (zeros at the last
-        shard: the global Dirichlet face, identically zero state)."""
-        if self.n_shards == 1:
-            plane = jnp.zeros_like(t[:1])
-        else:
-            bwd = [(i + 1, i) for i in range(self.n_shards - 1)]
-            plane = jax.lax.ppermute(t[:1], self.axis_name, bwd)
-        return jnp.concatenate([t, plane], axis=0)
-
-    def _send_right(self, plane):
-        if self.n_shards == 1:
-            return jnp.zeros_like(plane)
-        fwd = [(i, i + 1) for i in range(self.n_shards - 1)]
-        return jax.lax.ppermute(plane, self.axis_name, fwd)
-
-    def _thin(self, u_ext):
-        """Raw partial (masked) contribution of OUR cells to plane L of
-        M A M u — the row the trimmed kernel output drops (cf.
-        ShardedPallasLaplace.apply's thin completion, on trimmed y/z)."""
-        sp_op = self.op
-        loc = sp_op.local
-        p = loc.degree
-        _, L, N1m, Z = self._dims
-        win = u_ext[-(p + 1):, :, :Z] * loc.mask1[0][-(p + 1):].reshape(-1, 1, 1)
-        win = win * loc.mask1[1][:N1m].reshape(1, -1, 1)
-        win = win * loc.mask1[2][:Z].reshape(1, 1, -1)
-        hi = jax.lax.Precision.HIGHEST
-        K1m = sp_op.K1m[:N1m, :N1m]
-        M1m = sp_op.M1m[:N1m, :N1m]
-        K1z = sp_op.K1m[:Z, :Z]
-        M1z = sp_op.M1m[:Z, :Z]
-
-        def ctr(t, W, ax):
-            return jnp.moveaxis(
-                jnp.tensordot(t, W, axes=((ax,), (1,)), precision=hi), -1, ax
-            )
-
-        b = ctr(win, M1z, 2)
-        a = ctr(win, K1z, 2)
-        mb = ctr(b, M1m, 1)
-        kb = ctr(b, K1m, 1)
-        ma = ctr(a, M1m, 1)
-        last = jnp.tensordot(sp_op.thin_kx, mb, axes=(0, 0), precision=hi)
-        last = last + jnp.tensordot(
-            sp_op.thin_mx, kb + ma, axes=(0, 0), precision=hi
-        )
-        if self._zp:
-            last = jnp.pad(last, ((0, 0), (0, self._zp)))
-        return last
-
-    def _diag_trimmed(self):
-        loc = self.op.local
-        _, L, N1m, Z = self._dims
-
-        def zext(v):  # pad lanes hold 1.0 (state is zero there; 0/1 == 0)
-            v = v[:Z]
-            if self._zp:
-                v = jnp.pad(v, (0, self._zp), constant_values=1.0)
-            return v
-
-        xK = loc.dK1[0][:L].reshape(-1, 1, 1)
-        xM = loc.dM1[0][:L].reshape(-1, 1, 1)
-        yK = loc.dK1[1][:N1m].reshape(1, -1, 1)
-        yM = loc.dM1[1][:N1m].reshape(1, -1, 1)
-        zK = zext(loc.dK1[2]).reshape(1, 1, -1)
-        zM = zext(loc.dM1[2]).reshape(1, 1, -1)
-        return xK * yM * zM + xM * (yK * zM + yM * zK)
-
-    def _inv_diag_row0(self):
-        return 1.0 / self._diag_trimmed()[:1]
-
-    def _trim(self, t):
-        g, L, N1m, Z = self._dims
-        t = t.reshape(g)[:L, :N1m, :Z]
-        if self._zp:
-            t = jnp.pad(t, ((0, 0), (0, 0), (0, self._zp)))
-        return t
-
-    def _ext_x(self, t):
-        g, L, N1m, Z = self._dims
-        t = t.reshape(g)[:, :N1m, :Z]
-        if self._zp:
-            t = jnp.pad(t, ((0, 0), (0, 0), (0, self._zp)))
-        return t
-
-    def _to_full(self, x):
-        """Trimmed per-shard state -> full consistent slab (duplicated
-        plane restored by one ppermute, Dirichlet planes re-padded)."""
-        if self._zp:
-            x = x[:, :, : self._dims[3]]
-        return jnp.pad(self._ext_from_right(x), ((0, 0), (0, 1), (0, 1)))
-
-    def _ext_both(self, t, h):
-        """Prepend/append h planes from the left/right neighbours (zeros at
-        the global ends — lax.ppermute yields zeros for unpaired chips)."""
-        if self.n_shards == 1:
-            z = jnp.zeros((h,) + t.shape[1:], t.dtype)
-            return jnp.concatenate([z, t, z], axis=0)
-        fwd = [(i, i + 1) for i in range(self.n_shards - 1)]
-        bwd = [(i + 1, i) for i in range(self.n_shards - 1)]
-        left = jax.lax.ppermute(t[-h:], self.axis_name, fwd)
-        right = jax.lax.ppermute(t[:h], self.axis_name, bwd)
-        return jnp.concatenate([left, t, right], axis=0)
-
-    # --- the smoother ------------------------------------------------------
-    def _steps(self, r, d, x, k0: int = 0, rho: float | None = None):
-        sigma1 = self.theta / self.delta
-        if rho is None:
-            rho = 1.0 / sigma1
-        idg0 = self._inv_diag_row0()
-        loc = self.op_smooth.local
-        p = loc.degree
-        n = self.degree - 1
-        k = k0
-        while k < n:
-            rho_new = 1.0 / (2.0 * sigma1 - rho)
-            c1 = 2.0 * rho_new / self.delta
-            if self.op_cheb2 is not None and k + 1 < n:
-                rho2 = 1.0 / (2.0 * sigma1 - rho_new)
-                scal = jnp.stack([
-                    rho_new * rho, c1, rho2 * rho_new,
-                    2.0 * rho2 / self.delta,
-                ]).astype(jnp.float32)
-                last = k + 2 == n
-                outs = self.op_cheb2.steps2(
-                    self._ext_both(d, 2 * p), self._ext_both(r, p), x,
-                    scal, "cheb2l" if last else "cheb2", sdtype="f32",
-                )
-                if last:
-                    return outs[0]
-                r, d, x = outs
-                rho = rho2
-                k += 2
-                continue
-            scal = jnp.stack([rho_new * rho, c1]).astype(jnp.float32)
-            d_ext = self._ext_from_right(d)
-            rn, dn, xn = loc._run("chebf", d_ext, (r, x), scal)
-            delta = self._send_right(self._thin(d_ext))[None]
-            corr = (c1 * idg0) * delta
-            r = rn.at[:1].add(-delta)
-            d = dn.at[:1].add(-corr)
-            x = xn.at[:1].add(-corr)
-            rho = rho_new
-            k += 1
-        return x
-
-    def apply(self, b: jnp.ndarray) -> jnp.ndarray:
-        """Preconditioner vmult with x0 = 0 on a masked full slab.
-
-        With the pair kernel the entry pair runs mode "cheb2f0" exactly
-        like the single-chip path (solvers/chebyshev.py:_x_from_rhs): d0
-        is derived IN-KERNEL from the halo-extended b window — no separate
-        XLA d0 pass and no materialized r0/d0 HBM streams for the first
-        two recurrence steps (VERDICT r3 weak item 5: the sharded
-        composition previously paid one extra HBM pass per preconditioner
-        application vs single-chip)."""
-        bt = self._trim(b)
-        p = self.op_smooth.local.degree
-        n = self.degree - 1
-        if self.op_cheb2 is not None and n >= 2:
-            sigma1 = self.theta / self.delta
-            rho = 1.0 / sigma1
-            rho1 = 1.0 / (2.0 * sigma1 - rho)
-            rho2 = 1.0 / (2.0 * sigma1 - rho1)
-            scal = jnp.stack([
-                rho1 * rho, 2.0 * rho1 / self.delta,
-                rho2 * rho1, 2.0 * rho2 / self.delta, self.theta,
-            ]).astype(jnp.float32)
-            mode = "cheb2f0l" if n == 2 else "cheb2f0"
-            outs = self.op_cheb2.steps2(
-                self._ext_both(bt, 2 * p), None, None, scal, mode,
-                sdtype="f32",
-            )
-            if n == 2:
-                return self._to_full(outs[0])
-            r, d, x = outs
-            return self._to_full(self._steps(r, d, x, k0=2, rho=rho2))
-        d0 = bt / (self.theta * self._diag_trimmed())
-        return self._to_full(self._steps(bt, d0, d0))
-
-    def smooth(self, u: jnp.ndarray, rhs: jnp.ndarray) -> jnp.ndarray:
-        u_ext = self._ext_x(u)
-        rhs_t = self._trim(rhs)
-        scal = jnp.stack([self.theta, self.theta]).astype(jnp.float32)
-        r0, d0, x0 = self.op.local._run("residual3f", u_ext, (rhs_t,), scal)
-        delta = self._send_right(self._thin(u_ext))[None]
-        corr = (self._inv_diag_row0() / self.theta) * delta
-        r0 = r0.at[:1].add(-delta)
-        d0 = d0.at[:1].add(-corr)
-        x0 = x0.at[:1].add(-corr)
-        return self._to_full(self._steps(r0, d0, x0))
-
-    def residual(self, u: jnp.ndarray, rhs: jnp.ndarray) -> jnp.ndarray:
-        u_ext = self._ext_x(u)
-        rhs_t = self._trim(rhs)
-        (r0,) = self.op.local._run("residual1f", u_ext, (rhs_t,))
-        delta = self._send_right(self._thin(u_ext))[None]
-        return self._to_full(r0.at[:1].add(-delta))
-
-
-@pytree_dataclass
 class GatherTransfer:
     """Boundary transfer between a slab-SHARDED fine level and a REPLICATED
     coarse level.
 
     The reference coarsens to the 1-cell base mesh regardless of rank count
     (reference: source/geometric_multigrid/program.cc:137-147); below the
-    shard granularity (fewer cell slabs than chips) the TPU-native answer is
-    to replicate those ultra-coarse levels on every chip:
+    shard granularity (fewer cell slabs than devices) the answer here is
+    to replicate those ultra-coarse levels on every device:
 
-      * restrict: all_gather the consistent fine slabs over ICI, reassemble
+      * restrict: all_gather the consistent fine slabs, reassemble
         the full fine grid (dropping the duplicated planes) and restrict
         locally — every chip deterministically computes the same full coarse
         grid, so the replicated sub-hierarchy needs no further collectives;
@@ -707,6 +257,15 @@ def unpartition_axis0(stacked, n_cells: int, degree: int, n_shards: int):
     parts = [np.asarray(stacked[s])[:-1] for s in range(n_shards - 1)]
     parts.append(np.asarray(stacked[n_shards - 1]))
     return np.concatenate(parts, axis=0)
+
+
+def shard_placement(x) -> tuple:
+    """((device, shard shape), ...) for every addressable piece of a
+    sharded array, in device-id order."""
+    return tuple(
+        (str(sh.device), tuple(sh.data.shape))
+        for sh in sorted(x.addressable_shards, key=lambda sh: sh.device.id)
+    )
 
 
 def dot_weights_axis0(n_cells: int, degree: int, n_shards: int):

@@ -1,6 +1,6 @@
 """Preconditioned conjugate gradients under jit (lax.while_loop).
 
-TPU-native replacement for deal.II's ``SolverCG`` + ``SolverControl`` as
+JAX replacement for deal.II's ``SolverCG`` + ``SolverControl`` as
 consumed by the reference driver (reference:
 source/geometric_multigrid/program.cc:345-352: absolute tolerance
 1e-12 * ||b||, max_iter = vector size).  The loop is fully on-device; the
@@ -23,7 +23,9 @@ class CGResult(NamedTuple):
 
 
 def _dot(a, b):
-    return jnp.vdot(a, b)
+    # HIGHEST: an f32 dot at default precision may round its operands (TF32
+    # on a GPU), and CG's alpha/beta are where that would cost iterations
+    return jnp.vdot(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def cg(

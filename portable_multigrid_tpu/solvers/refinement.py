@@ -1,8 +1,8 @@
 """Mixed-precision iterative refinement: f64 accuracy from f32 inner solves.
 
-TPU MXU/VPU hardware is f32/bf16; f64 is software-emulated and slow.  The
-reference's 1e-12 relative-residual target (reference:
-source/geometric_multigrid/program.cc:345-346) is reached TPU-natively by
+Where f64 arithmetic is slow or unavailable, the reference's 1e-12
+relative-residual target (reference:
+source/geometric_multigrid/program.cc:345-346) is reached by
 classical iterative refinement (Wilkinson; Carson & Higham 2018):
 
     x = 0;  r = b                                [f64]

@@ -1,6 +1,6 @@
 """V-cycle multigrid preconditioner (unrolled over static levels under jit).
 
-TPU-native rebuild of ``Portable::VCycleMultigrid`` (reference:
+JAX rebuild of ``Portable::VCycleMultigrid`` (reference:
 include/multigrid/portable_v_cycle_multigrid.h:26-190), preserving its exact
 algorithmic structure so the convergence history matches:
 
@@ -36,25 +36,14 @@ class MGLevel:
 
 @pytree_dataclass
 class VCycle:
-    """Multigrid V-cycle preconditioner: levels[0] is the coarsest.
-
-    ``fine_trimmed=True`` (set by :func:`wire_trimmed`) means the finest
-    level's smoother/transfer operate on TRIMMED state (global last plane
-    per axis dropped — the fused Pallas pipeline's native representation):
-    ``apply`` trims the incoming full-grid residual once and pads the result
-    once, and everything in between chains kernel-to-kernel.
-    """
+    """Multigrid V-cycle preconditioner: levels[0] is the coarsest."""
 
     pre_smoothing_steps: int = static_field(default=2)
     post_smoothing_steps: int = static_field(default=2)
-    fine_trimmed: bool = static_field(default=False)
     levels: tuple = ()
 
     def _smooth(self, level: int, u: jnp.ndarray, rhs: jnp.ndarray) -> jnp.ndarray:
         lvl = self.levels[level]
-        if hasattr(lvl.smoother, "smooth"):
-            # fused path: residual + Chebyshev recurrence inside the kernels
-            return lvl.smoother.smooth(u, rhs)
         r = rhs - lvl.op.apply(u)
         return u + lvl.smoother.apply(r)
 
@@ -67,20 +56,9 @@ class VCycle:
         # src, so the residual apply is skipped (exact; the reference pays
         # this apply, see portable_v_cycle_multigrid.h:120 with u = 0)
         u = lvl.smoother.apply(src)
-        # the LAST pre-smooth and the pre-restriction residual fuse into
-        # one kernel chain when the smoother supports it (the cheb2lr
-        # "pair + r_out" mode — ops/pallas_cheb2.py); algebraically
-        # identical to smooth() then residual()
-        fuse_sr = (self.pre_smoothing_steps >= 2
-                   and hasattr(lvl.smoother, "smooth_and_residual"))
-        for _ in range(self.pre_smoothing_steps - (2 if fuse_sr else 1)):
+        for _ in range(self.pre_smoothing_steps - 1):
             u = self._smooth(level, u, src)
-        if fuse_sr:
-            u, residual = lvl.smoother.smooth_and_residual(u, src)
-        elif hasattr(lvl.smoother, "residual"):
-            residual = lvl.smoother.residual(u, src)
-        else:
-            residual = src - lvl.op.apply(u)
+        residual = src - lvl.op.apply(u)
         coarse_residual = lvl.transfer.restrict(residual)
         coarse_correction = self._cycle(level - 1, coarse_residual)
         u = lvl.transfer.prolongate_and_add(u, coarse_correction)
@@ -90,46 +68,4 @@ class VCycle:
 
     def apply(self, src: jnp.ndarray) -> jnp.ndarray:
         """Preconditioner vmult: dst = V-cycle(0, src) from the finest level."""
-        if not self.fine_trimmed:
-            return self._cycle(len(self.levels) - 1, src)
-        g = self.levels[-1].op.grid_shape
-        zpad = getattr(self.levels[-1].op, "zpad", 0)
-        st = src.reshape(g)[tuple(slice(0, s - 1) for s in g)]
-        if zpad:
-            # the lane axis is the LAST grid axis (z in 3D, y in 2D)
-            st = jnp.pad(st, [(0, 0)] * (len(g) - 1) + [(0, zpad)])
-        out = self._cycle(len(self.levels) - 1, st)
-        if zpad:
-            out = out[..., : g[-1] - 1]
-        return jnp.pad(out, ((0, 1),) * len(g))
-
-
-def wire_trimmed(levels):
-    """Wrap transfers between trimmed-state levels (smoothers with
-    ``trimmed_io=True``) in :class:`ops.transfer.TrimmedTransfer`; returns
-    ``(wired_levels, fine_trimmed)`` to construct a VCycle with.
-
-    Hierarchies may mix trimmed Pallas levels and full-grid XLA levels;
-    representation conversion happens only at level boundaries where the
-    flags differ."""
-    from ..ops.transfer import TrimmedTransfer
-
-    wired = []
-    prev_trim = False
-    prev_zpad = 0
-    for lvl in levels:
-        trim = bool(getattr(lvl.smoother, "trimmed_io", False))
-        zpad = getattr(lvl.op, "zpad", 0) if trim else 0
-        tr = lvl.transfer
-        # transfers that already speak trimmed state (TrimmedTransfer,
-        # PallasTransfer) expose a coarse_trimmed flag — leave them alone
-        if (tr is not None and (trim or prev_trim)
-                and not hasattr(tr, "coarse_trimmed")):
-            tr = TrimmedTransfer(
-                fine_trimmed=trim, coarse_trimmed=prev_trim,
-                fine_zpad=zpad, coarse_zpad=prev_zpad, base=tr
-            )
-        wired.append(MGLevel(op=lvl.op, smoother=lvl.smoother, transfer=tr))
-        prev_trim = trim
-        prev_zpad = zpad
-    return wired, prev_trim
+        return self._cycle(len(self.levels) - 1, src)

@@ -3,7 +3,7 @@
 The whole solver stack (operators, smoothers, transfers, V-cycle) is expressed
 as immutable dataclasses whose array fields are pytree leaves and whose shape/
 degree/dimension fields are static metadata.  This lets a full multigrid
-hierarchy be passed straight through ``jax.jit`` — the TPU-native replacement
+hierarchy be passed straight through ``jax.jit`` — the JAX replacement
 for the reference's virtual-dispatch `LaplaceOperatorBase` hierarchy
 (reference: include/base/portable_laplace_operator_base.h:16-96, where a
 compile-time template dispatch bridges runtime degree to instantiations; here

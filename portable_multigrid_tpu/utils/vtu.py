@@ -1,6 +1,6 @@
 """VTU output for structured-grid solutions (pure Python, zlib-compressed).
 
-TPU-native replacement for the reference's DataOut VTU output with
+JAX replacement for the reference's DataOut VTU output with
 best-speed compression (reference: source/geometric_multigrid/program.cc:368-380).
 Writes VTK ImageData (.vti) — the natural format for a structured DoF grid —
 with appended zlib-compressed binary data, readable by ParaView/VisIt.

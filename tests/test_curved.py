@@ -140,7 +140,7 @@ def test_curved_q1_geometry_equals_general_mesh():
 
 
 def test_curved_multigrid_convergence():
-    """VERDICT r2 #7: full V(2,2)-CG multigrid on the curved annulus at
+    """Full V(2,2)-CG multigrid on the curved annulus at
     p=3 — O(1) mesh-independent iterations and isoparametric h^(p+1) L2
     rate through the complete MG solve."""
     from portable_multigrid_tpu.models.general_geometry import CurvedMultigrid

@@ -1,4 +1,4 @@
-"""Vector-valued elasticity operator + solver tests (BASELINE config 4)."""
+"""Vector-valued elasticity operator + solver tests."""
 
 import numpy as np
 import pytest
@@ -48,8 +48,8 @@ def test_elasticity_symmetry():
 
 
 def test_elasticity_mg_solve():
-    """Q3 elasticity with geometric V-cycle (BASELINE config 4): O(10)
-    iterations, solution matches the dense solve."""
+    """Q3 elasticity with geometric V-cycle: O(10) iterations, solution
+    matches the dense solve."""
     prob = ElasticityMultigrid(2, 3, 2, mu=1.0, lam=1.0)
     x, st = prob.solve()
     assert st.converged
@@ -67,7 +67,7 @@ def test_elasticity_mg_solve():
 
 @pytest.mark.parametrize("dim,p,r", CASES)
 def test_elasticity_dense_variant_matches_dense(dim, p, r):
-    """The single-MXU-matmul element-matrix path (variant="dense") is the
+    """The single-matmul element-matrix path (variant="dense") is the
     exact same operator: constant element matrix on the affine mesh,
     overlap-add assembly."""
     sp = FESpace(HyperCubeMesh(dim, r), p)

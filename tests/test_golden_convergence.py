@@ -22,9 +22,8 @@ def _load():
 
 
 # a fast subset always runs; the FULL recorded table (every config the
-# generator produced) replays in the slow-marked tests below.  p = 5..7 at
-# r=1 run in the fast tier because those degrees exercise the mxu3-exact
-# rescue + zpad paths on TPU and need their oracles guarded most.
+# generator produced) replays in the slow-marked tests below.  Every degree
+# p = 1..7 has a row in the fast subset.
 FAST_GEO = [(1, 2), (2, 2), (3, 1), (4, 1), (5, 1), (6, 1), (7, 1)]
 FULL_GEO = [(d, r) for d in (1, 2, 3, 4, 5, 6, 7) for r in (1, 2, 3)]
 

@@ -1,4 +1,4 @@
-"""Mixed multigrid configurations (BASELINE configs 3 and 5) + VTU output."""
+"""Mixed multigrid configurations (p/h ladder, f32 V-cycle under f64 CG) + VTU output."""
 
 import os
 

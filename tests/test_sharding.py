@@ -1,6 +1,6 @@
 """Multi-chip sharding tests on the virtual CPU device mesh (conftest: 8 devices).
 
-The TPU-native analog of the reference's "same binary under mpirun -n N"
+The analog of the reference's "same binary under mpirun -n N"
 story (SURVEY.md §4): sharded results must match the single-device solver to
 roundoff."""
 
@@ -200,66 +200,6 @@ def test_2d_device_mesh_2x2():
     assert st.solution_l2_norm == pytest.approx(0.0412615, rel=1e-4)
 
 
-def test_sharded_pallas_apply_matches_single_device():
-    """The fused Pallas kernel inside shard_map (interpret mode): raw
-    partial boundary planes + halo_sum reproduce the single-device operator
-    — the reference's one-hot-kernel-for-serial-and-MPI property
-    (include/operators/portable_laplace_operator.h:557-719)."""
-    from portable_multigrid_tpu.parallel.poisson import _build_stacked_pallas
-
-    dim, p, r, n_dev = 3, 4, 3, 4
-    sp = FESpace(HyperCubeMesh(dim, r), p)
-    op = make_laplace(sp, jnp.float32)
-    rng = np.random.default_rng(0)
-    u = rng.standard_normal(sp.grid_shape).astype(np.float32)
-    want = np.asarray(op.apply(u))
-
-    sop_st = _build_stacked_pallas(sp, n_dev, jnp.float32, interpret=True)
-    assert sop_st is not None
-    u_st = jnp.asarray(
-        partition_axis0(u, sp.mesh.cells_per_axis, p, n_dev), jnp.float32
-    )
-
-    def f(sop_stacked, u_stacked):
-        return _unstack(sop_stacked).apply(u_stacked[0])[None]
-
-    got_st = jax.jit(
-        jax.shard_map(
-            f,
-            mesh=_mesh(n_dev),
-            in_specs=(P(AXIS), P(AXIS)),
-            out_specs=P(AXIS),
-            check_vma=False,
-        )
-    )(sop_st, u_st)
-    got = unpartition_axis0(np.asarray(got_st), sp.mesh.cells_per_axis, p, n_dev)
-    np.testing.assert_allclose(got, want, atol=2e-5 * np.abs(want).max())
-    for s in range(n_dev - 1):
-        np.testing.assert_allclose(
-            np.asarray(got_st)[s][-1], np.asarray(got_st)[s + 1][0],
-            atol=1e-6 * np.abs(want).max(),
-        )
-
-
-def test_sharded_pallas_solve_matches_single_device():
-    """Full sharded h-MG solve with the pallas variant on eligible levels."""
-    sharded = ShardedGeometricPoisson(
-        3, 4, 3, devices=jax.devices()[:4], dtype=jnp.float32,
-        variant="pallas", pallas_interpret=True,
-    )
-    x_s, st_s = sharded.solve(rtol=1e-5)
-    single = GeometricMultigridPoisson(3, 4, 3, dtype=jnp.float64)
-    x_1, st_1 = single.solve(rtol=1e-5)
-    assert st_s.converged
-    assert st_s.iterations == st_1.iterations
-    scale = np.abs(np.asarray(x_1)).max()
-    np.testing.assert_allclose(
-        np.asarray(x_s, dtype=np.float64).reshape(-1),
-        np.asarray(x_1).reshape(-1),
-        atol=2e-5 * scale,
-    )
-
-
 def test_sharded_eigenvalue_setup_matches_twin():
     """Fully-sharded setup (eig CG inside shard_map) gives the same solve as
     the single-device-twin setup — no chip needs to hold the global level."""
@@ -276,93 +216,9 @@ def test_sharded_eigenvalue_setup_matches_twin():
                                atol=1e-10 * scale)
 
 
-def test_sharded_fused_smoother_matches_single_chip():
-    """ShardedFusedChebyshev (halo-aware fused kernels + plane-0
-    corrections) reproduces the single-chip FusedChebyshev smoother to
-    roundoff on every surface (apply / smooth / residual) — the production
-    fast path is ONE program serial and distributed."""
-    import dataclasses
-
-    from portable_multigrid_tpu.ops.pallas_laplace import make_pallas_laplace
-    from portable_multigrid_tpu.parallel.poisson import _build_stacked_pallas
-    from portable_multigrid_tpu.parallel.sharding import ShardedFusedChebyshev
-    from portable_multigrid_tpu.solvers.chebyshev import FusedChebyshev
-
-    dim, p, r, n_dev = 3, 4, 3, 4
-    sp = FESpace(HyperCubeMesh(dim, r), p)
-    n = sp.mesh.cells_per_axis
-    exact1 = make_pallas_laplace(sp, jnp.float32, bx=4, by=4, interpret=True)
-    mxu1 = make_pallas_laplace(sp, jnp.float32, bx=4, by=4, interpret=True,
-                               core="mxu")
-    theta = jnp.asarray(1.3, jnp.float32)
-    delta = jnp.asarray(0.9, jnp.float32)
-    fused1 = FusedChebyshev(degree=5, op=exact1, op_smooth=mxu1,
-                            theta=theta, delta=delta)
-
-    rng = np.random.default_rng(3)
-    m = np.asarray(exact1.mask)
-    b = (rng.standard_normal(sp.grid_shape) * m).astype(np.float32)
-    u = (rng.standard_normal(sp.grid_shape) * m).astype(np.float32)
-
-    op_st = _build_stacked_pallas(sp, n_dev, jnp.float32, interpret=True)
-    mxu_st = _build_stacked_pallas(sp, n_dev, jnp.float32, core="mxu",
-                                   interpret=True)
-    assert op_st is not None and mxu_st is not None
-    b_st = jnp.asarray(partition_axis0(b, n, p, n_dev))
-    u_st = jnp.asarray(partition_axis0(u, n, p, n_dev))
-
-    # exact banded recurrence core: f32-roundoff parity.  The bf16 MXU core
-    # rounds per BLOCK, and the slab kernel's block partition necessarily
-    # differs from the single-chip one, so mxu surfaces agree only to bf16
-    # grade — the convergence-count gate for that path is
-    # test_sharded_pallas_solve_matches_single_device.
-    for core_st, tol in ((op_st, 2e-5), (mxu_st, 3e-3)):
-        sm_st = ShardedFusedChebyshev(
-            axis_name=AXIS, n_shards=n_dev, degree=5,
-            op=op_st, op_smooth=core_st,
-            theta=jnp.broadcast_to(theta, (n_dev,)),
-            delta=jnp.broadcast_to(delta, (n_dev,)),
-        )
-        sm1 = dataclasses.replace(
-            fused1, op_smooth=exact1 if core_st is op_st else mxu1
-        )
-
-        def f(sm_stacked, u_stacked, b_stacked):
-            sm = _unstack(sm_stacked)
-            return (sm.apply(b_stacked[0])[None],
-                    sm.smooth(u_stacked[0], b_stacked[0])[None],
-                    sm.residual(u_stacked[0], b_stacked[0])[None])
-
-        za_st, sa_st, ra_st = jax.jit(
-            jax.shard_map(
-                f, mesh=_mesh(n_dev),
-                in_specs=(P(AXIS), P(AXIS), P(AXIS)),
-                out_specs=(P(AXIS),) * 3,
-                check_vma=False,
-            )
-        )(sm_st, u_st, b_st)
-
-        for got_st, want in (
-            (za_st, sm1.apply(b)),
-            (sa_st, sm1.smooth(u, b)),
-            (ra_st, sm1.residual(u, b)),
-        ):
-            want = np.asarray(want)
-            got = unpartition_axis0(np.asarray(got_st), n, p, n_dev)
-            np.testing.assert_allclose(
-                got, want, atol=tol * np.abs(want).max()
-            )
-            # duplicated planes stay consistent
-            for s in range(n_dev - 1):
-                np.testing.assert_allclose(
-                    np.asarray(got_st)[s][-1], np.asarray(got_st)[s + 1][0],
-                    atol=1e-6 * np.abs(want).max(),
-                )
-
-
 @pytest.mark.parametrize("n_dev", [3, 6])
 def test_extended_arbitrary_shard_counts(n_dev):
-    """Non-power-of-two chip counts (VERDICT r2 #6): the extended-domain
+    """Non-power-of-two chip counts: the extended-domain
     padding solves the SAME unit-cube problem on any S — live-region
     solution matches the single-device solver, O(1) iterations."""
     from portable_multigrid_tpu.parallel.extended import ExtendedShardedPoisson
@@ -383,548 +239,4 @@ def test_extended_arbitrary_shard_counts(n_dev):
     np.testing.assert_allclose(
         np.asarray(x), np.asarray(x1).reshape(x.shape),
         atol=1e-9 * np.abs(np.asarray(x1)).max(),
-    )
-
-
-def test_2d_pencil_pallas_apply_matches_single_device():
-    """Fused Pallas kernel on a 2D pencil mesh (interpret): raw partial
-    planes on BOTH sharded axes + thin x/y completions + ordered 2D halo
-    reproduce the single-device operator."""
-    from portable_multigrid_tpu.parallel.mesh2d import (
-        _build_stacked_pallas2d,
-        partition_2d,
-        unpartition_2d,
-        AX,
-        AY,
-    )
-
-    dim, p, r, sx, sy = 3, 4, 3, 2, 2
-    sp = FESpace(HyperCubeMesh(dim, r), p)
-    n = sp.mesh.cells_per_axis
-    op = make_laplace(sp, jnp.float32)
-    rng = np.random.default_rng(0)
-    u = rng.standard_normal(sp.grid_shape).astype(np.float32)
-    want = np.asarray(op.apply(u))
-
-    sop = _build_stacked_pallas2d(sp, sx, sy, jnp.float32, interpret=True)
-    assert sop is not None
-    u_st = jnp.asarray(partition_2d(u, n, p, sx, sy))
-    mesh2 = Mesh(np.array(jax.devices()[: sx * sy]).reshape(sx, sy),
-                 (AX, AY))
-
-    def f(sop_st, u_stk):
-        loc = _unstack(_unstack(sop_st))
-        return loc.apply(u_stk[0, 0])[None, None]
-
-    got_st = jax.jit(
-        jax.shard_map(
-            f, mesh=mesh2,
-            in_specs=(P(AX, AY), P(AX, AY)),
-            out_specs=P(AX, AY),
-            check_vma=False,
-        )
-    )(sop, u_st)
-    got = unpartition_2d(np.asarray(got_st), n, p, sx, sy)
-    np.testing.assert_allclose(got, want, atol=2e-5 * np.abs(want).max())
-
-
-def test_2d_pencil_pallas_solve_matches_single_device():
-    """Full 2D-pencil h-MG solve with the pallas variant: exact
-    iteration-count parity with the single-device solver (VERDICT r2 #5)."""
-    from portable_multigrid_tpu.parallel.mesh2d import Sharded2DGeometricPoisson
-
-    prob = Sharded2DGeometricPoisson(
-        3, 4, 3, mesh_shape=(2, 2), dtype=jnp.float32, variant="pallas",
-        pallas_interpret=True,
-    )
-    x, st = prob.solve(rtol=1e-5)
-    single = GeometricMultigridPoisson(3, 4, 3, dtype=jnp.float64)
-    x1, st1 = single.solve(rtol=1e-5)
-    assert st.converged
-    assert st.iterations == st1.iterations
-    scale = np.abs(np.asarray(x1)).max()
-    np.testing.assert_allclose(
-        np.asarray(x, dtype=np.float64), np.asarray(x1),
-        atol=2e-5 * scale,
-    )
-
-
-def test_sharded_cheb2_pairs_match_single_chip():
-    """The two-step pair kernel under shard_map (xext mode: 2p/p-plane
-    ppermute halos, per-shard slices of the global block-matrix stacks) is
-    block-for-block the single-chip pair — apply/smooth agree tightly even
-    in the production bf16-matrix grade, because the block partitions and
-    window contents are identical on both sides."""
-    import dataclasses
-
-    from portable_multigrid_tpu.ops.pallas_cheb2 import make_cheb2
-    from portable_multigrid_tpu.ops.pallas_laplace import make_pallas_laplace
-    from portable_multigrid_tpu.parallel.poisson import (
-        _build_stacked_cheb2,
-        _build_stacked_pallas,
-    )
-    from portable_multigrid_tpu.parallel.sharding import ShardedFusedChebyshev
-    from portable_multigrid_tpu.solvers.chebyshev import FusedChebyshev
-
-    dim, p, r, n_dev = 3, 4, 3, 4
-    sp = FESpace(HyperCubeMesh(dim, r), p)
-    n = sp.mesh.cells_per_axis
-    exact1 = make_pallas_laplace(sp, jnp.float32, bx=4, by=4, interpret=True)
-    mxu1 = make_pallas_laplace(sp, jnp.float32, bx=4, by=4, interpret=True,
-                               core="mxu")
-    k2_1 = make_cheb2(sp, jnp.float32, bx=2, by=4, interpret=True)
-    theta = jnp.asarray(1.3, jnp.float32)
-    delta = jnp.asarray(0.9, jnp.float32)
-    fused1 = FusedChebyshev(degree=5, op=exact1, op_smooth=mxu1,
-                            op_cheb2=k2_1, theta=theta, delta=delta)
-
-    rng = np.random.default_rng(7)
-    m = np.asarray(exact1.mask)
-    b = (rng.standard_normal(sp.grid_shape) * m).astype(np.float32)
-    u = (rng.standard_normal(sp.grid_shape) * m).astype(np.float32)
-
-    op_st = _build_stacked_pallas(sp, n_dev, jnp.float32, interpret=True)
-    mxu_st = _build_stacked_pallas(sp, n_dev, jnp.float32, core="mxu",
-                                   interpret=True)
-    k2_st = _build_stacked_cheb2(sp, n_dev, jnp.float32, interpret=True,
-                                 bx=2, by=4)
-    assert op_st is not None and mxu_st is not None and k2_st is not None
-    b_st = jnp.asarray(partition_axis0(b, n, p, n_dev))
-    u_st = jnp.asarray(partition_axis0(u, n, p, n_dev))
-
-    sm_st = ShardedFusedChebyshev(
-        axis_name=AXIS, n_shards=n_dev, degree=5,
-        op=op_st, op_smooth=mxu_st, op_cheb2=k2_st,
-        theta=jnp.broadcast_to(theta, (n_dev,)),
-        delta=jnp.broadcast_to(delta, (n_dev,)),
-    )
-
-    def f(sm_stacked, u_stacked, b_stacked):
-        sm = _unstack(sm_stacked)
-        return (sm.apply(b_stacked[0])[None],
-                sm.smooth(u_stacked[0], b_stacked[0])[None])
-
-    za_st, sa_st = jax.jit(
-        jax.shard_map(
-            f, mesh=_mesh(n_dev),
-            in_specs=(P(AXIS), P(AXIS), P(AXIS)),
-            out_specs=(P(AXIS),) * 2,
-            check_vma=False,
-        )
-    )(sm_st, u_st, b_st)
-
-    # apply: the d0 entry is bitwise identical on both sides, so the
-    # pairs are block-for-block the same program -> f32 roundoff.  smooth:
-    # the residual entry states differ at roundoff (different banded block
-    # partitions), which the pair's in-kernel bf16 rounding of d amplifies
-    # to bf16 grade — same tolerance structure as the single-step mxu test
-    # above; the convergence-count gate is the sharded pallas solve test.
-    for got_st, want, tol in ((za_st, fused1.apply(b), 2e-5),
-                              (sa_st, fused1.smooth(u, b), 3e-3)):
-        want = np.asarray(want)
-        got = unpartition_axis0(np.asarray(got_st), n, p, n_dev)
-        np.testing.assert_allclose(got, want, atol=tol * np.abs(want).max())
-        for s in range(n_dev - 1):
-            np.testing.assert_allclose(
-                np.asarray(got_st)[s][-1], np.asarray(got_st)[s + 1][0],
-                atol=1e-6 * np.abs(want).max(),
-            )
-
-
-def test_2d_pencil_cheb2_pairs_match_single_chip():
-    """The two-step pair kernel in xext+yext mode on a 2x2 pencil mesh:
-    before each pair the halos ship by ordered y-then-x ppermute exchanges
-    and the per-block x/y matrix stacks are per-shard slices of the global
-    stacks — block-for-block the single-chip pair (the 2D analog of
-    test_sharded_cheb2_pairs_match_single_chip)."""
-    from portable_multigrid_tpu.ops.pallas_cheb2 import make_cheb2
-    from portable_multigrid_tpu.ops.pallas_laplace import make_pallas_laplace
-    from portable_multigrid_tpu.parallel.mesh2d import (
-        AX,
-        AY,
-        ShardedFused2DChebyshev,
-        _build_stacked_cheb2_2d,
-        _build_stacked_pallas2d,
-        partition_2d,
-        unpartition_2d,
-    )
-    from portable_multigrid_tpu.solvers.chebyshev import FusedChebyshev
-
-    dim, p, r, sx, sy = 3, 4, 3, 2, 2
-    sp = FESpace(HyperCubeMesh(dim, r), p)
-    n = sp.mesh.cells_per_axis
-    exact1 = make_pallas_laplace(sp, jnp.float32, bx=4, by=4, interpret=True)
-    mxu1 = make_pallas_laplace(sp, jnp.float32, bx=4, by=4, interpret=True,
-                               core="mxu")
-    k2_1 = make_cheb2(sp, jnp.float32, bx=2, by=2, interpret=True)
-    theta = jnp.asarray(1.3, jnp.float32)
-    delta = jnp.asarray(0.9, jnp.float32)
-    fused1 = FusedChebyshev(degree=5, op=exact1, op_smooth=mxu1,
-                            op_cheb2=k2_1, theta=theta, delta=delta)
-
-    rng = np.random.default_rng(7)
-    m = np.asarray(exact1.mask)
-    b = (rng.standard_normal(sp.grid_shape) * m).astype(np.float32)
-    u = (rng.standard_normal(sp.grid_shape) * m).astype(np.float32)
-
-    op_st = _build_stacked_pallas2d(sp, sx, sy, jnp.float32, interpret=True)
-    k2_st = _build_stacked_cheb2_2d(sp, sx, sy, jnp.float32, interpret=True,
-                                    bx=2, by=2)
-    assert op_st is not None and k2_st is not None
-    b_st = jnp.asarray(partition_2d(b, n, p, sx, sy))
-    u_st = jnp.asarray(partition_2d(u, n, p, sx, sy))
-
-    sm_st = ShardedFused2DChebyshev(
-        sx=sx, sy=sy, degree=5,
-        op=op_st, op_cheb2=k2_st,
-        theta=jnp.broadcast_to(theta, (sx, sy)),
-        delta=jnp.broadcast_to(delta, (sx, sy)),
-    )
-    mesh2 = Mesh(np.array(jax.devices()[: sx * sy]).reshape(sx, sy),
-                 (AX, AY))
-
-    def f(sm_stacked, u_stacked, b_stacked):
-        sm = _unstack(_unstack(sm_stacked))
-        return (sm.apply(b_stacked[0, 0])[None, None],
-                sm.smooth(u_stacked[0, 0], b_stacked[0, 0])[None, None])
-
-    za_st, sa_st = jax.jit(
-        jax.shard_map(
-            f, mesh=mesh2,
-            in_specs=(P(AX, AY), P(AX, AY), P(AX, AY)),
-            out_specs=(P(AX, AY),) * 2,
-            check_vma=False,
-        )
-    )(sm_st, u_st, b_st)
-
-    # apply: the d0 entry is elementwise identical and the pair windows are
-    # block-for-block the single-chip blocks -> f32 roundoff.  smooth: the
-    # entry residual states differ at roundoff (pencil slab kernel + thin
-    # completions vs the single-chip residual3 kernel), which the pair's
-    # in-kernel bf16 rounding of d amplifies to bf16 grade — the same
-    # tolerance structure as the 1D slab test; the convergence-count gate
-    # is test_2d_pencil_pallas_solve_matches_single_device (which runs the
-    # fused pair smoother by default).
-    for got_st, want, tol in ((za_st, fused1.apply(b), 2e-5),
-                              (sa_st, fused1.smooth(u, b), 3e-3)):
-        want = np.asarray(want)
-        got = unpartition_2d(np.asarray(got_st), n, p, sx, sy)
-        np.testing.assert_allclose(got, want, atol=tol * np.abs(want).max())
-        # duplicated boundary planes must agree between neighbours
-        st = np.asarray(got_st)
-        for i in range(sx - 1):
-            np.testing.assert_allclose(
-                st[i, 0][-1], st[i + 1, 0][0],
-                atol=1e-6 * np.abs(want).max(),
-            )
-        for j in range(sy - 1):
-            np.testing.assert_allclose(
-                st[0, j][:, -1], st[0, j + 1][:, 0],
-                atol=1e-6 * np.abs(want).max(),
-            )
-
-
-def test_sharded_zpad_solve_matches_single_device():
-    """Lane-padded (zpad) grids ride the FULL sharded fast path (VERDICT r3
-    item 7): the finest level builds the slab pallas operators AND the cheb2
-    pair kernel with inert zero lane padding (the z axis is orthogonal to
-    the sharded x axis), and the solve matches the single-device iteration
-    count exactly.  Q5/Q7-style grids (n*p not a 128-multiple) shard their
-    fast path through this mechanism on hardware; interpret mode exercises
-    the padded windows on a tiny grid via an explicit zpad."""
-    from portable_multigrid_tpu.parallel.sharding import (
-        ShardedFusedChebyshev,
-        ShardedPallasLaplace,
-    )
-
-    sharded = ShardedGeometricPoisson(
-        3, 4, 3, devices=jax.devices()[:4], dtype=jnp.float32,
-        variant="pallas", pallas_interpret=True, pallas_zpad=8,
-    )
-    fine = sharded.levels_stacked[-1]
-    assert isinstance(fine.op, ShardedPallasLaplace)
-    assert fine.op.local.zpad == 8
-    assert isinstance(fine.smoother, ShardedFusedChebyshev)
-    assert fine.smoother.op_smooth is not None
-    assert fine.smoother.op_cheb2 is not None, "pair kernel must build zpad"
-    assert fine.smoother.op_cheb2.zpad == 8
-    x_s, st_s = sharded.solve(rtol=1e-5)
-    single = GeometricMultigridPoisson(3, 4, 3, dtype=jnp.float64)
-    x_1, st_1 = single.solve(rtol=1e-5)
-    assert st_s.converged
-    assert st_s.iterations == st_1.iterations
-    scale = np.abs(np.asarray(x_1)).max()
-    np.testing.assert_allclose(
-        np.asarray(x_s, dtype=np.float64).reshape(-1),
-        np.asarray(x_1).reshape(-1),
-        atol=2e-5 * scale,
-    )
-
-
-def test_sharded_cheb2_odd_steps_match_single_chip():
-    """ODD recurrence step counts in the sharded pair smoother (VERDICT r3
-    item 7): degree 4 runs 3 recurrence steps — one cheb2 pair followed by
-    one single-step chebf rung with its plane-0 halo correction — and must
-    agree with the single-chip FusedChebyshev mixing pairs and singles the
-    same way."""
-    from portable_multigrid_tpu.ops.pallas_cheb2 import make_cheb2
-    from portable_multigrid_tpu.ops.pallas_laplace import make_pallas_laplace
-    from portable_multigrid_tpu.parallel.poisson import (
-        _build_stacked_cheb2,
-        _build_stacked_pallas,
-    )
-    from portable_multigrid_tpu.parallel.sharding import ShardedFusedChebyshev
-    from portable_multigrid_tpu.solvers.chebyshev import FusedChebyshev
-
-    dim, p, r, n_dev = 3, 4, 3, 4
-    sp = FESpace(HyperCubeMesh(dim, r), p)
-    n = sp.mesh.cells_per_axis
-    exact1 = make_pallas_laplace(sp, jnp.float32, bx=4, by=4, interpret=True)
-    mxu1 = make_pallas_laplace(sp, jnp.float32, bx=4, by=4, interpret=True,
-                               core="mxu")
-    k2_1 = make_cheb2(sp, jnp.float32, bx=2, by=4, interpret=True)
-    theta = jnp.asarray(1.3, jnp.float32)
-    delta = jnp.asarray(0.9, jnp.float32)
-    fused1 = FusedChebyshev(degree=4, op=exact1, op_smooth=mxu1,
-                            op_cheb2=k2_1, theta=theta, delta=delta)
-
-    rng = np.random.default_rng(11)
-    m = np.asarray(exact1.mask)
-    b = (rng.standard_normal(sp.grid_shape) * m).astype(np.float32)
-    u = (rng.standard_normal(sp.grid_shape) * m).astype(np.float32)
-
-    op_st = _build_stacked_pallas(sp, n_dev, jnp.float32, interpret=True)
-    mxu_st = _build_stacked_pallas(sp, n_dev, jnp.float32, core="mxu",
-                                   interpret=True)
-    k2_st = _build_stacked_cheb2(sp, n_dev, jnp.float32, interpret=True,
-                                 bx=2, by=4)
-    assert op_st is not None and mxu_st is not None and k2_st is not None
-    b_st = jnp.asarray(partition_axis0(b, n, p, n_dev))
-    u_st = jnp.asarray(partition_axis0(u, n, p, n_dev))
-
-    sm_st = ShardedFusedChebyshev(
-        axis_name=AXIS, n_shards=n_dev, degree=4,
-        op=op_st, op_smooth=mxu_st, op_cheb2=k2_st,
-        theta=jnp.broadcast_to(theta, (n_dev,)),
-        delta=jnp.broadcast_to(delta, (n_dev,)),
-    )
-
-    def f(sm_stacked, u_stacked, b_stacked):
-        sm = _unstack(sm_stacked)
-        return (sm.apply(b_stacked[0])[None],
-                sm.smooth(u_stacked[0], b_stacked[0])[None])
-
-    za_st, sa_st = jax.jit(
-        jax.shard_map(
-            f, mesh=_mesh(n_dev),
-            in_specs=(P(AXIS), P(AXIS), P(AXIS)),
-            out_specs=(P(AXIS),) * 2,
-            check_vma=False,
-        )
-    )(sm_st, u_st, b_st)
-
-    # BOTH surfaces compare at bf16 grade here (unlike the even-degree test,
-    # where apply is block-for-block identical): the single-chip odd entry
-    # runs the in-kernel "cheb2f0" d0 derivation while the sharded path
-    # derives d0 in XLA — 1-ulp f32 differences in d0 flip bf16 roundings
-    # of the pair's d stream in scattered entries.
-    for got_st, want, tol in ((za_st, fused1.apply(b), 3e-3),
-                              (sa_st, fused1.smooth(u, b), 3e-3)):
-        want = np.asarray(want)
-        got = unpartition_axis0(np.asarray(got_st), n, p, n_dev)
-        np.testing.assert_allclose(got, want, atol=tol * np.abs(want).max())
-        for s in range(n_dev - 1):
-            np.testing.assert_allclose(
-                np.asarray(got_st)[s][-1], np.asarray(got_st)[s + 1][0],
-                atol=1e-6 * np.abs(want).max(),
-            )
-
-
-def test_2d_pencil_cheb2_odd_steps_match_single_chip():
-    """ODD recurrence step counts on the 2D pencil mesh (VERDICT r3 item 7):
-    degree 4 runs one true pair plus a ZERO-COEFFICIENT tail pair (step 2 of
-    the pair collapses to the identity: d2 = 0, x2 = x1 — exact), so the
-    pencil smoother no longer falls back to plain Chebyshev for odd
-    configs."""
-    from portable_multigrid_tpu.ops.pallas_cheb2 import make_cheb2
-    from portable_multigrid_tpu.ops.pallas_laplace import make_pallas_laplace
-    from portable_multigrid_tpu.parallel.mesh2d import (
-        AX,
-        AY,
-        ShardedFused2DChebyshev,
-        _build_stacked_cheb2_2d,
-        _build_stacked_pallas2d,
-        partition_2d,
-        unpartition_2d,
-    )
-    from portable_multigrid_tpu.solvers.chebyshev import FusedChebyshev
-
-    dim, p, r, sx, sy = 3, 4, 3, 2, 2
-    sp = FESpace(HyperCubeMesh(dim, r), p)
-    n = sp.mesh.cells_per_axis
-    exact1 = make_pallas_laplace(sp, jnp.float32, bx=4, by=4, interpret=True)
-    mxu1 = make_pallas_laplace(sp, jnp.float32, bx=4, by=4, interpret=True,
-                               core="mxu")
-    k2_1 = make_cheb2(sp, jnp.float32, bx=2, by=2, interpret=True)
-    theta = jnp.asarray(1.3, jnp.float32)
-    delta = jnp.asarray(0.9, jnp.float32)
-    fused1 = FusedChebyshev(degree=4, op=exact1, op_smooth=mxu1,
-                            op_cheb2=k2_1, theta=theta, delta=delta)
-
-    rng = np.random.default_rng(13)
-    m = np.asarray(exact1.mask)
-    b = (rng.standard_normal(sp.grid_shape) * m).astype(np.float32)
-    u = (rng.standard_normal(sp.grid_shape) * m).astype(np.float32)
-
-    op_st = _build_stacked_pallas2d(sp, sx, sy, jnp.float32, interpret=True)
-    k2_st = _build_stacked_cheb2_2d(sp, sx, sy, jnp.float32, interpret=True,
-                                    bx=2, by=2)
-    assert op_st is not None and k2_st is not None
-    b_st = jnp.asarray(partition_2d(b, n, p, sx, sy))
-    u_st = jnp.asarray(partition_2d(u, n, p, sx, sy))
-
-    sm_st = ShardedFused2DChebyshev(
-        sx=sx, sy=sy, degree=4,
-        op=op_st, op_cheb2=k2_st,
-        theta=jnp.broadcast_to(theta, (sx, sy)),
-        delta=jnp.broadcast_to(delta, (sx, sy)),
-    )
-    mesh2 = Mesh(np.array(jax.devices()[: sx * sy]).reshape(sx, sy),
-                 (AX, AY))
-
-    def f(sm_stacked, u_stacked, b_stacked):
-        sm = _unstack(_unstack(sm_stacked))
-        return (sm.apply(b_stacked[0, 0])[None, None],
-                sm.smooth(u_stacked[0, 0], b_stacked[0, 0])[None, None])
-
-    za_st, sa_st = jax.jit(
-        jax.shard_map(
-            f, mesh=mesh2,
-            in_specs=(P(AX, AY), P(AX, AY), P(AX, AY)),
-            out_specs=(P(AX, AY),) * 2,
-            check_vma=False,
-        )
-    )(sm_st, u_st, b_st)
-
-    # bf16-grade on both surfaces: the single-chip odd path mixes the
-    # "cheb2f0"/"chebl" modes while the pencil runs pair + zero-coeff pair —
-    # same recurrence values, different rounding order (cf. the 1D odd test)
-    for got_st, want, tol in ((za_st, fused1.apply(b), 3e-3),
-                              (sa_st, fused1.smooth(u, b), 3e-3)):
-        want = np.asarray(want)
-        got = unpartition_2d(np.asarray(got_st), n, p, sx, sy)
-        np.testing.assert_allclose(got, want, atol=tol * np.abs(want).max())
-
-
-def test_2d_pencil_zpad_solve_matches_single_device():
-    """Lane-padded 2D-pencil fast path: the finest level builds the pencil
-    pallas operator AND the xext+yext cheb2 pair kernel with inert zero lane
-    padding; the solve matches single-device iteration counts exactly."""
-    from portable_multigrid_tpu.parallel.mesh2d import (
-        Sharded2DGeometricPoisson,
-        ShardedFused2DChebyshev,
-        ShardedPallas2DLaplace,
-    )
-
-    prob = Sharded2DGeometricPoisson(
-        3, 4, 3, mesh_shape=(2, 2), dtype=jnp.float32, variant="pallas",
-        pallas_interpret=True, pallas_zpad=8,
-    )
-    fine = prob.levels_stacked[-1]
-    assert isinstance(fine.op, ShardedPallas2DLaplace)
-    assert fine.op.local.zpad == 8
-    assert isinstance(fine.smoother, ShardedFused2DChebyshev)
-    assert fine.smoother.op_cheb2.zpad == 8
-    x, st = prob.solve(rtol=1e-5)
-    single = GeometricMultigridPoisson(3, 4, 3, dtype=jnp.float64)
-    x1, st1 = single.solve(rtol=1e-5)
-    assert st.converged
-    assert st.iterations == st1.iterations
-    scale = np.abs(np.asarray(x1)).max()
-    np.testing.assert_allclose(
-        np.asarray(x, dtype=np.float64), np.asarray(x1),
-        atol=2e-5 * scale,
-    )
-
-
-def test_sharded_pallas_elasticity_apply_matches_kron():
-    """ShardedPallasElasticity (slab vector kernel, xmask=vector, thin
-    21-chain last-plane completion, one 3-component halo_sum) reproduces the
-    global kron elasticity apply to f64 roundoff — the sharpest check on
-    the vector thin completion."""
-    from portable_multigrid_tpu.ops.elasticity import make_elasticity
-    from portable_multigrid_tpu.parallel.elasticity import (
-        _build_stacked_pallas_elasticity,
-    )
-
-    sp = FESpace(HyperCubeMesh(3, 2), 4)  # n = 4 cells, p = 4
-    S, mu, lam = 2, 0.7, 1.3
-    sop_st = _build_stacked_pallas_elasticity(
-        sp, S, jnp.float64, mu, lam, interpret=True, zpad=0
-    )
-    assert sop_st is not None
-    ref = make_elasticity(sp, jnp.float64, mu=mu, lam=lam, variant="kron")
-    rng = np.random.default_rng(7)
-    u = rng.standard_normal(ref.shape)
-    n, p = sp.mesh.cells_per_axis, sp.degree
-    u_st = jnp.asarray(
-        np.stack(
-            [
-                np.stack([partition_axis0(u[c], n, p, S)[s] for c in range(3)])
-                for s in range(S)
-            ]
-        )
-    )
-
-    def f(op_st, u_s):
-        op = _unstack(op_st)
-        return op.apply(u_s[0])[None]
-
-    au_st = jax.jit(
-        jax.shard_map(
-            f,
-            mesh=_mesh(S),
-            in_specs=(P(AXIS), P(AXIS)),
-            out_specs=P(AXIS),
-            check_vma=False,
-        )
-    )(sop_st, u_st)
-    au = np.stack(
-        [
-            unpartition_axis0(np.asarray(au_st)[:, c], n, p, S)
-            for c in range(3)
-        ]
-    )
-    a_ref = np.asarray(ref.apply(jnp.asarray(u)))
-    scale = np.abs(a_ref).max()
-    assert np.abs(au - a_ref).max() <= 1e-12 * scale
-
-
-def test_sharded_pallas_elasticity_solve_matches_single_device():
-    """End-to-end sharded elasticity solve on the slab Pallas vector kernel
-    (variant="pallas", interpret): solution + iteration parity vs the
-    single-device kron model."""
-    from portable_multigrid_tpu.parallel.elasticity import ShardedElasticity
-    from portable_multigrid_tpu.models.elasticity import ElasticityMultigrid
-    from portable_multigrid_tpu.parallel.sharding import (
-        ShardedPallasElasticity,
-    )
-
-    sharded = ShardedElasticity(
-        3, 4, 2, devices=jax.devices()[:2], variant="pallas",
-        pallas_interpret=True, pallas_zpad=0,
-    )
-    # the fine level must actually run the pallas path
-    from portable_multigrid_tpu.parallel.elasticity import (
-        _build_stacked_pallas_elasticity as _b,  # noqa: F401
-    )
-    assert isinstance(sharded.levels_stacked[-1].op, ShardedPallasElasticity)
-    x_s, st_s = sharded.solve()
-    single = ElasticityMultigrid(3, 4, 2)
-    x_1, st_1 = single.solve()
-    assert st_s.converged and st_1.converged
-    assert st_s.iterations == st_1.iterations
-    scale = np.abs(np.asarray(x_1)).max()
-    np.testing.assert_allclose(
-        np.asarray(x_s), np.asarray(x_1), atol=1e-9 * scale
     )

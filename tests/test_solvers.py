@@ -152,7 +152,7 @@ def test_l2_norm_regression_3d():
 
 def test_variable_coefficient_multigrid_solve():
     """Rediscretized-coarse-level MG for a(u,v)=∫c∇u·∇v with smooth c(x):
-    O(1) iterations and dense-solve parity (BASELINE config 4)."""
+    O(1) iterations and dense-solve parity."""
     from portable_multigrid_tpu.fem.assemble import dense_operator_coefficient
 
     def c(*xs):

@@ -90,3 +90,58 @@ def test_prolongation_preserves_interior_polynomials():
     tr = make_h_transfer(coarse, fine)
     got = np.asarray(tr.prolongate(C))
     np.testing.assert_allclose(got, F, atol=1e-13)
+
+
+def _transfer_pair(kind, p, dtype=None):
+    if kind == "h":
+        coarse = FESpace(HyperCubeMesh(2, 1), p)
+        fine = FESpace(HyperCubeMesh(2, 2), p)
+        make = make_h_transfer
+    else:
+        mesh = HyperCubeMesh(2, 2)
+        coarse, fine = FESpace(mesh, p), FESpace(mesh, p + 1)
+        make = make_p_transfer
+    tr = make(coarse, fine) if dtype is None else make(coarse, fine, dtype)
+    return coarse, fine, tr
+
+
+@pytest.mark.parametrize("p", range(1, 8))
+@pytest.mark.parametrize("algo", ["unrolled", "dot"])
+@pytest.mark.parametrize("kind", ["h", "p"])
+def test_restriction_is_transpose_for_both_algorithms(kind, algo, p):
+    """<P c, f> == <c, R f> for both contraction engines at p = 1..7
+    (p-transfer: degree p -> p + 1)."""
+    import dataclasses
+
+    import jax
+
+    coarse, fine, tr = _transfer_pair(kind, p)
+    tr = dataclasses.replace(tr, algo=algo)
+    rng = np.random.default_rng(10 + p)
+    c = rng.standard_normal(coarse.grid_shape)
+    f = rng.standard_normal(fine.grid_shape)
+    pc, rf = jax.jit(lambda tr, c, f: (tr.prolongate(c), tr.restrict(f)))(
+        tr, c, f)
+    lhs = np.vdot(np.asarray(pc), f)
+    rhs = np.vdot(c, np.asarray(rf))
+    assert lhs == pytest.approx(rhs, rel=1e-13)
+
+
+@pytest.mark.parametrize("direction", ["restrict", "prolongate"])
+def test_f32_dot_transfer_contracts_at_highest(direction):
+    """The "dot" engine pins its f32 contractions to HIGHEST precision (an
+    f32 tensordot at default precision may run in TF32 on a GPU)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    coarse, fine, tr = _transfer_pair("h", 3, jnp.float32)
+    tr = dataclasses.replace(tr, algo="dot")
+    space = fine if direction == "restrict" else coarse
+    x = jnp.zeros(space.grid_shape, jnp.float32)
+    jaxpr = jax.make_jaxpr(getattr(tr, direction))(x).jaxpr
+    precs = [e.params["precision"] for e in jaxpr.eqns
+             if e.primitive.name == "dot_general"]
+    hi = (jax.lax.Precision.HIGHEST, jax.lax.Precision.HIGHEST)
+    assert precs and all(pr == hi for pr in precs)
